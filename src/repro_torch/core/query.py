@@ -1,0 +1,118 @@
+"""Batched deterministic query engine: planner, routes, retrieval hash.
+
+``plan_query`` and ``QueryPlan`` are the reference's host logic, verbatim,
+so the port's plans compare equal to the reference's. ``execute_plan``
+runs the exact route (``search.exact_search``: qgemm + qtopk on the card)
+or the HNSW route (``batched_hnsw_search``). The compressed coarse route
+and the sharded fan-outs arrive with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import hashing
+from repro_torch.core import hnsw as hnsw_lib
+from repro_torch.core import search
+from repro_torch.core.state import MemoryState, WorkingState
+
+INF = search.INF
+
+ROUTE_EXACT = "exact"
+ROUTE_HNSW = "hnsw"
+ROUTE_COARSE = "coarse"
+
+
+def batched_hnsw_search(state: MemoryState, queries_raw: torch.Tensor, k: int,
+                        *, ef: int = 64
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ANN for B queries: (ids [B,k], dists [B,k], slots [B,k]) on the
+    state's device, each row exactly ``hnsw.hnsw_search`` of that query."""
+    rows = hnsw_lib.search_batch(WorkingState(state), queries_raw, k, ef)
+    dev = state.device
+    kk = rows[0][0].shape[0] if rows else min(k, ef)
+    out = []
+    for j, dt in enumerate((np.int64, np.int64, np.int32)):
+        arr = (np.stack([r[j] for r in rows]) if rows
+               else np.zeros((0, kk), dt))
+        out.append(torch.from_numpy(arr).to(dev))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryPlan:
+    """A replayable routing decision: pure data, equal for equal facts."""
+    route: str               # ROUTE_EXACT | ROUTE_HNSW | ROUTE_COARSE
+    k: int
+    ef: int
+    use_kernel: bool         # kept so plans equal the reference's plans
+    live_count: int          # the fact the decision was made from
+    reason: str
+    served_by: str = "primary"
+    ef_coarse: int = 0
+    dim: int = 0
+    graph_gen: int = 0
+
+
+def plan_query(live_count: int, k: int, ef: int, *,
+               use_kernel: bool = False, exact_threshold: int = 1024,
+               route: str = "auto", ef_coarse: int = 0,
+               dim: int = 0, graph_gen: int = 0) -> QueryPlan:
+    """Pick exact-scan vs HNSW vs the coarse tier from static host facts.
+
+    Rules, first match wins: 1. a forced route (hnsw with k > ef, or coarse
+    with k > ef_coarse, raises); 2. k > ef → exact; 3. live_count <=
+    exact_threshold → exact; 4. ef >= live_count → exact; 5. 0 < k <=
+    ef_coarse, 4*ef_coarse <= 3*live_count and dim <= 8192 → coarse;
+    6. otherwise HNSW."""
+    def mk(r, why):
+        return QueryPlan(route=r, k=k, ef=ef, use_kernel=use_kernel,
+                         live_count=live_count, reason=why,
+                         ef_coarse=ef_coarse, dim=dim, graph_gen=graph_gen)
+
+    if route != "auto":
+        if route not in (ROUTE_EXACT, ROUTE_HNSW, ROUTE_COARSE):
+            raise ValueError(f"unknown route {route!r}")
+        if route == ROUTE_HNSW and k > ef:
+            raise ValueError(f"route='hnsw' needs k <= ef, got k={k} ef={ef}")
+        if route == ROUTE_COARSE and k > ef_coarse:
+            raise ValueError(f"route='coarse' needs k <= ef_coarse, "
+                             f"got k={k} ef_coarse={ef_coarse}")
+        return mk(route, "forced")
+    if k > ef:
+        return mk(ROUTE_EXACT, f"k={k} > ef={ef}")
+    if live_count <= exact_threshold:
+        return mk(ROUTE_EXACT, f"live={live_count} <= {exact_threshold}")
+    if ef >= live_count:
+        return mk(ROUTE_EXACT, f"ef={ef} >= live={live_count}")
+    if (0 < k <= ef_coarse and 4 * ef_coarse <= 3 * live_count
+            and dim <= 8192):
+        return mk(ROUTE_COARSE,
+                  f"int8 scan + {ef_coarse}-rerank beats exact bytes at "
+                  f"live={live_count}, dim={dim}")
+    return mk(ROUTE_HNSW, f"live={live_count}, k={k}, ef={ef}")
+
+
+def execute_plan(state: MemoryState, queries_raw: torch.Tensor, k: int,
+                 plan: QueryPlan, *, metric: str = search.METRIC_L2
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the planned route: (ids [B,k] int64, wide scores [B,k] int64)."""
+    if plan.route == ROUTE_EXACT:
+        return search.exact_search(state, queries_raw, k, metric=metric,
+                                   use_kernel=plan.use_kernel)
+    if plan.route == ROUTE_COARSE:
+        raise NotImplementedError(
+            "the coarse route needs the compressed tier (codes + the qcoarse "
+            "kernel), which is a later slice of the port")
+    ids, dists, _ = batched_hnsw_search(state, queries_raw, k, ef=plan.ef)
+    return ids, dists
+
+
+def retrieval_hash(ids, scores) -> int:
+    """Platform-invariant hash of a retrieval set: two runs agree iff every
+    (id, score) bit agrees."""
+    return hashing.hash_pytree((torch.as_tensor(ids).to(torch.int64),
+                                torch.as_tensor(scores).to(torch.int64)))

@@ -1,0 +1,112 @@
+"""Exact deterministic k-NN over the fixed-point arena.
+
+Scoring is a wide integer matmul and selection a (score, id)
+lexicographic top-k, so results — tie order included — are bit-identical
+everywhere. Scores are wide (unshifted Q(2f)) int64 values, lower is
+better for both metrics (dot scores are negated).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.sorting import sort2
+from repro_torch.core.state import MemoryState
+from repro_torch.kernels.qgemm import ops as qgemm_ops
+from repro_torch.kernels.qtopk import ops as qtopk_ops
+
+INF = 1 << 62
+TOMBSTONE_ID = 1 << 62  # the id dead rows sort under (last among ties)
+
+METRIC_L2 = "l2"
+METRIC_DOT = "dot"
+
+
+def _kernel_route(x: torch.Tensor, use_kernel: bool) -> bool:
+    return use_kernel or x.device.type == "cuda"
+
+
+def score_block(queries_raw: torch.Tensor, db_raw: torch.Tensor,
+                metric: str = METRIC_L2, use_kernel: bool = False
+                ) -> torch.Tensor:
+    """Wide integer scores [nq, nd] int64; lower = better.
+
+    Kernel dispatch goes by device, not by ``use_kernel``: a CUDA tensor
+    always scores through the qgemm CUDA kernel, a CPU tensor through the
+    plain int64 product. The reference's flag chose between two
+    bit-identical implementations; on the card there is only one, and the
+    flag stays on the plans only so that they compare equal."""
+    if _kernel_route(queries_raw, use_kernel):
+        wide_dot = qgemm_ops.qgemm(queries_raw, db_raw)
+    else:
+        wide_dot = torch.matmul(queries_raw.to(torch.int64),
+                                db_raw.to(torch.int64).T)
+    if metric == METRIC_DOT:
+        return -wide_dot
+    if metric == METRIC_L2:
+        qq = torch.sum(queries_raw.to(torch.int64) ** 2, dim=-1)
+        nn = torch.sum(db_raw.to(torch.int64) ** 2, dim=-1)
+        return qq[:, None] - 2 * wide_dot + nn[None, :]
+    raise ValueError(f"unknown metric {metric!r}")
+
+
+def topk_by_score(scores: torch.Tensor, ids: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k smallest scores with (score, id) tie-break (full sort)."""
+    nq, n = scores.shape
+    s, i = sort2(scores, ids[None, :].expand(nq, n))
+    return s[:, :k], i[:, :k]
+
+
+def _topk_by_score_kernel(scores: torch.Tensor, ids: torch.Tensor, k: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """qtopk-backed top-k, bit-identical to :func:`topk_by_score`.
+
+    The kernel tie-breaks on int32 keys; ids are int64, so each id is
+    replaced by its rank among the sorted ids (strictly monotone for the
+    unique live ids; dead rows share id 2^62 and score INF, and every INF
+    result is normalized to (-1, INF) by the caller)."""
+    n = ids.shape[0]
+    order = torch.argsort(ids, stable=True)
+    ranks = torch.empty((n,), dtype=torch.int32, device=ids.device)
+    ranks[order] = torch.arange(n, dtype=torch.int32, device=ids.device)
+    sorted_ids = ids[order]
+    s, r = qtopk_ops.qtopk(scores.contiguous(), ranks, k)
+    return s, sorted_ids[torch.clamp(r, 0, n - 1).to(torch.int64)]
+
+
+def exact_search(state: MemoryState, queries_raw: torch.Tensor, k: int, *,
+                 metric: str = METRIC_L2, use_kernel: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k-NN over all live rows: (ids [nq, k] int64, scores [nq, k] int64).
+    Missing results (fewer than k live rows) are (-1, INF). On the card the
+    scan is qgemm + qtopk (see ``score_block`` for the dispatch rule)."""
+    scores = score_block(queries_raw, state.vectors, metric, use_kernel)
+    scores = torch.where(state.valid[None, :], scores, INF)
+    ids = torch.where(state.valid, state.ids, TOMBSTONE_ID)
+    if _kernel_route(queries_raw, use_kernel):
+        s, i = _topk_by_score_kernel(scores, ids, k)
+    else:
+        s, i = topk_by_score(scores, ids, k)
+    found = s < INF
+    return torch.where(found, i, -1), torch.where(found, s, INF)
+
+
+def merge_candidates(scores: torch.Tensor, ids: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of a [..., m] candidate pool by (score, id): the one combine
+    every fan-in path shares; invariant to any permutation of the pool."""
+    i_key = torch.where(scores < INF, ids, TOMBSTONE_ID)
+    s_sorted, i_sorted = sort2(scores, i_key)
+    s_out = s_sorted[..., :k]
+    i_out = i_sorted[..., :k]
+    return s_out, torch.where(s_out < INF, i_out, -1)
+
+
+def merge_topk(scores_a: torch.Tensor, ids_a: torch.Tensor,
+               scores_b: torch.Tensor, ids_b: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two sorted top-k lists into one (associative, commutative)."""
+    return merge_candidates(torch.cat([scores_a, scores_b], dim=-1),
+                            torch.cat([ids_a, ids_b], dim=-1), k)

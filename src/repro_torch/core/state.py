@@ -1,0 +1,227 @@
+"""MemoryState: the substrate's kernel state as a frozen dataclass of tensors.
+
+The same arena as the reference (``repro.core.state``), field for field
+and dtype for dtype:
+
+* ``vectors``   int{16,32,64}[capacity, dim]  raw Q-format rows
+* ``ids``       int64[capacity]               external ids (-1 = empty)
+* ``valid``     bool[capacity]                live mask
+* ``links``     int32[capacity, max_links]    typed user edges
+* ``meta``      int64[capacity, meta_slots]   per-row metadata words
+* ``hnsw_*``    deterministic HNSW adjacency (see hnsw.py)
+* scalars ``cursor``/``count`` int32 and ``version`` int64 (0-dim tensors).
+
+All tensors of a state live on one device, named explicitly at
+``init_state``; ``state_from_numpy``/``state_to_numpy`` carry a state
+(the reference's, as numpy arrays) in and out of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.contracts import (DEFAULT_CONTRACT, PrecisionContract,
+                                        get_contract)
+
+FIELDS = ("vectors", "ids", "valid", "links", "meta", "hnsw_neighbors",
+          "hnsw_levels", "hnsw_entry", "cursor", "count", "version")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another. Never falls back to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "port on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryState:
+    vectors: torch.Tensor
+    ids: torch.Tensor
+    valid: torch.Tensor
+    links: torch.Tensor
+    meta: torch.Tensor
+    hnsw_neighbors: torch.Tensor  # [levels, capacity, degree] int32
+    hnsw_levels: torch.Tensor     # [capacity] int32, -1 empty
+    hnsw_entry: torch.Tensor      # [] int32
+    cursor: torch.Tensor          # [] int32
+    count: torch.Tensor           # [] int32
+    version: torch.Tensor         # [] int64 — logical time t
+    contract_name: str = DEFAULT_CONTRACT.name
+
+    @property
+    def capacity(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.vectors.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vectors.device
+
+    @property
+    def contract(self) -> PrecisionContract:
+        return get_contract(self.contract_name)
+
+    @property
+    def max_links(self) -> int:
+        return self.links.shape[1]
+
+    @property
+    def hnsw_degree(self) -> int:
+        return self.hnsw_neighbors.shape[2]
+
+    @property
+    def hnsw_max_levels(self) -> int:
+        return self.hnsw_neighbors.shape[0]
+
+    @property
+    def t(self) -> torch.Tensor:
+        return self.version
+
+    def leaves(self):
+        """(field name, tensor) in field order — the hashed leaves."""
+        return [(f, getattr(self, f)) for f in FIELDS]
+
+    def to(self, device) -> "MemoryState":
+        return dataclasses.replace(
+            self, **{f: t.to(device) for f, t in self.leaves()})
+
+
+def init_state(capacity: int, dim: int, *,
+               contract: PrecisionContract = DEFAULT_CONTRACT,
+               max_links: int = 4, meta_slots: int = 2, hnsw_levels: int = 4,
+               hnsw_degree: int = 16, device=None) -> MemoryState:
+    """A fresh, empty state S_0 on ``device`` (``cuda`` when None)."""
+    dev = resolve_device(device)
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    return MemoryState(
+        vectors=full((capacity, dim), 0, contract.storage_dtype),
+        ids=full((capacity,), -1, torch.int64),
+        valid=full((capacity,), False, torch.bool),
+        links=full((capacity, max_links), -1, torch.int32),
+        meta=full((capacity, meta_slots), 0, torch.int64),
+        hnsw_neighbors=full((hnsw_levels, capacity, hnsw_degree), -1,
+                            torch.int32),
+        hnsw_levels=full((capacity,), -1, torch.int32),
+        hnsw_entry=full((), -1, torch.int32),
+        cursor=full((), 0, torch.int32),
+        count=full((), 0, torch.int32),
+        version=full((), 0, torch.int64),
+        contract_name=contract.name,
+    )
+
+
+def live_mask(state: MemoryState) -> torch.Tensor:
+    return state.valid
+
+
+def slot_of_id(state: MemoryState, ext_id) -> torch.Tensor:
+    """Slot holding ``ext_id`` among valid rows, or -1 (int32 0-dim). The
+    first match, as the reference's ``argmax`` over the bool mask (taken
+    over uint8: first occurrence of the maximum)."""
+    match = (state.ids == ext_id) & state.valid
+    slot = torch.argmax(match.to(torch.uint8)).to(torch.int32)
+    return torch.where(match.any(), slot, torch.full_like(slot, -1))
+
+
+_DTYPES = {"vectors": None, "ids": torch.int64, "valid": torch.bool,
+           "links": torch.int32, "meta": torch.int64,
+           "hnsw_neighbors": torch.int32, "hnsw_levels": torch.int32,
+           "hnsw_entry": torch.int32, "cursor": torch.int32,
+           "count": torch.int32, "version": torch.int64}
+
+
+def state_from_numpy(arrays: Dict[str, np.ndarray],
+                     contract_name: str = DEFAULT_CONTRACT.name,
+                     device=None) -> MemoryState:
+    """A state from numpy arrays keyed by field name (e.g. a reference
+    state's leaves). Dtypes are checked, never converted."""
+    dev = resolve_device(device)
+    contract = get_contract(contract_name)
+    fields = {}
+    for f in FIELDS:
+        arr = np.asarray(arrays[f])
+        want = _DTYPES[f] or contract.storage_dtype
+        t = torch.from_numpy(np.array(arr, copy=True))
+        if t.dtype != want:
+            raise TypeError(f"{f}: expected {want}, got {arr.dtype}")
+        fields[f] = t.to(dev)
+    return MemoryState(**fields, contract_name=contract_name)
+
+
+def state_to_numpy(state: MemoryState) -> Dict[str, np.ndarray]:
+    return {f: t.detach().cpu().numpy() for f, t in state.leaves()}
+
+
+class WorkingState:
+    """A mutable working copy of a MemoryState, for the host-driven loops of
+    the transition function F and the HNSW construction and search.
+
+    The arena's vectors stay on the state's device and every distance is
+    computed there. The small integer bookkeeping — ids, the valid mask,
+    links, meta, the HNSW adjacency, levels and entry, and the scalars — is
+    mirrored on the host (numpy / Python ints) for the duration of one call,
+    so that each data-dependent decision costs one device round trip (the
+    distances it needs) instead of one per array read. ``to_state`` writes
+    everything back as tensors on the device. ``vectors`` is a private clone
+    only when the caller will write rows (``writable=True``)."""
+
+    def __init__(self, state: MemoryState, writable: bool = False):
+        self.device = state.device
+        self.contract_name = state.contract_name
+        self.vectors = state.vectors.clone() if writable else state.vectors
+        self.ids = state.ids.cpu().numpy().copy()
+        self.valid = state.valid.cpu().numpy().copy()
+        self.links = state.links.cpu().numpy().copy()
+        self.meta = state.meta.cpu().numpy().copy()
+        self.neighbors = state.hnsw_neighbors.cpu().numpy().copy()
+        self.levels = state.hnsw_levels.cpu().numpy().copy()
+        self.entry = int(state.hnsw_entry)
+        self.cursor = int(state.cursor)
+        self.count = int(state.count)
+        self.version = int(state.version)
+
+    @property
+    def capacity(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def max_levels(self) -> int:
+        return self.neighbors.shape[0]
+
+    @property
+    def degree(self) -> int:
+        return self.neighbors.shape[2]
+
+    def to_state(self) -> MemoryState:
+        dev = self.device
+
+        def t(a):
+            return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+        def s(v, dt):
+            return torch.tensor(v, dtype=dt, device=dev)
+
+        return MemoryState(
+            vectors=self.vectors, ids=t(self.ids), valid=t(self.valid),
+            links=t(self.links), meta=t(self.meta),
+            hnsw_neighbors=t(self.neighbors), hnsw_levels=t(self.levels),
+            hnsw_entry=s(self.entry, torch.int32),
+            cursor=s(self.cursor, torch.int32),
+            count=s(self.count, torch.int32),
+            version=s(self.version, torch.int64),
+            contract_name=self.contract_name)

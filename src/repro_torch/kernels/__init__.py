@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels of the port, one package per TPU kernel.
+
+Each package keeps the reference's three parts: ``kernel.py`` (the launch
+of the CUDA C++ kernel in ``csrc/``, with a note on what bounds it),
+``ops.py`` (the wrapper: contract checks, dispatch by device, a launch
+counter) and ``ref.py`` (the plain PyTorch version, which CPU tensors take
+and the card's checks compare against).
+
+  qboundary — fused float→Q-encode→integer L2-normalize (the boundary)
+  qgemm     — exact int64 scoring matmul of raw fixed-point rows
+  qtopk     — deterministic k smallest (score, key) per row
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels.qboundary import ops as _qboundary_ops
+from repro_torch.kernels.qgemm import ops as _qgemm_ops
+from repro_torch.kernels.qtopk import ops as _qtopk_ops
+
+_OPS = {"qboundary": _qboundary_ops, "qgemm": _qgemm_ops, "qtopk": _qtopk_ops}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: mod.LAUNCHES for name, mod in _OPS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _OPS.values():
+        mod.LAUNCHES = 0

@@ -1,0 +1,72 @@
+"""The golden check: the port reproduces, on any device, hashes that the
+reference package wrote at the real width (``scripts/gen_golden_torch_port.py``
+→ ``tests/fixtures/torch_port_golden.json``). Used by
+``tests/test_torch_golden.py`` and, loaded by path, by ``chip_smoke.py``;
+it imports ``torch`` and ``repro_torch`` only.
+
+The recipe: ``n_insert`` float32 embeddings and ``n_query`` queries drawn
+from ``numpy.random.default_rng(seed)`` (normal, unit scale, in that
+order), then ``n_delete`` distinct ids to delete; INSERT ids 0..n-1 as one
+canonical batch through ``bulk_apply``, the deletes as one batch, then
+k-NN on the exact route and on the HNSW route.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core import boundary, commands, hashing, machine, query, search
+from repro_torch.core.state import init_state
+
+FIXTURE = (pathlib.Path(__file__).resolve().parent / "fixtures"
+           / "torch_port_golden.json")
+
+
+def make_inputs(seed: int, n_insert: int, dim: int, n_query: int,
+                n_delete: int):
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(n_insert, dim)).astype(np.float32)
+    queries = rng.normal(size=(n_query, dim)).astype(np.float32)
+    dead = np.sort(rng.choice(n_insert, size=n_delete, replace=False))
+    return emb, queries, dead.astype(np.int64)
+
+
+def load_spec(path=FIXTURE) -> Dict:
+    return json.loads(pathlib.Path(path).read_text())
+
+
+def run(spec: Dict, device) -> Dict:
+    """The port's hashes for ``spec`` on ``device``."""
+    emb, queries, dead = make_inputs(spec["seed"], spec["n_insert"],
+                                     spec["dim"], spec["n_query"],
+                                     spec["n_delete"])
+    dev = torch.device(device)
+    st = init_state(spec["capacity"], spec["dim"], device=dev)
+    raw = boundary.normalize_embedding(torch.from_numpy(emb).to(dev))
+    ids = torch.arange(spec["n_insert"], dtype=torch.int64, device=dev)
+    st = machine.bulk_apply(st, commands.insert_batch(ids, raw))
+    st = machine.bulk_apply(st, commands.delete_batch(
+        torch.from_numpy(dead).to(dev), spec["dim"]))
+    q = boundary.admit_query(torch.from_numpy(queries).to(dev))
+    k = spec["k"]
+    ex_ids, ex_s = search.exact_search(st, q, k)
+    hn_ids, hn_s, _ = query.batched_hnsw_search(st, q, k, ef=spec["ef"])
+    return {"hash_pytree": hashing.hash_state_device(st),
+            "content_hash": hashing.content_hash(st),
+            "retrieval_hash": {"exact": query.retrieval_hash(ex_ids, ex_s),
+                               "hnsw": query.retrieval_hash(hn_ids, hn_s)}}
+
+
+def check(device, path=FIXTURE) -> Dict:
+    """Run the recipe and raise unless every hash equals the fixture's."""
+    spec = load_spec(path)
+    got = run(spec, device)
+    want = {key: spec[key] for key in got}
+    if got != want:
+        raise AssertionError(f"golden mismatch on {device}: got {got}, "
+                             f"fixture {want}")
+    return got

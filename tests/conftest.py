@@ -21,3 +21,10 @@ def _bound_jit_mappings():
     yield
     jax.clear_caches()
     gc.collect()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skips elsewhere")
