@@ -2,9 +2,10 @@
 
 ``plan_query`` and ``QueryPlan`` are the reference's host logic, verbatim,
 so the port's plans compare equal to the reference's. ``execute_plan``
-runs the exact route (``search.exact_search``: qgemm + qtopk on the card)
-or the HNSW route (``batched_hnsw_search``). The compressed coarse route
-and the sharded fan-outs arrive with later slices.
+runs the exact route (``search.exact_search``: qgemm + qtopk on the card),
+the HNSW route (``batched_hnsw_search``) or the compressed tier's coarse
+route (``search.coarse_search``: qcoarse + qtopk + qgemm on the card). The
+sharded fan-outs arrive with a later slice.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import codes as codes_lib
 from repro_torch.core import hashing
 from repro_torch.core import hnsw as hnsw_lib
 from repro_torch.core import search
@@ -97,16 +99,21 @@ def plan_query(live_count: int, k: int, ef: int, *,
 
 
 def execute_plan(state: MemoryState, queries_raw: torch.Tensor, k: int,
-                 plan: QueryPlan, *, metric: str = search.METRIC_L2
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the planned route: (ids [B,k] int64, wide scores [B,k] int64)."""
+                 plan: QueryPlan, *, metric: str = search.METRIC_L2,
+                 codes=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the planned route: (ids [B,k] int64, wide scores [B,k] int64).
+
+    The coarse route takes the caller's maintained ``codes.CodeTable`` when
+    given and otherwise builds it from the state on the spot; the table is
+    a pure function of the live rows, so both give the same bits."""
     if plan.route == ROUTE_EXACT:
         return search.exact_search(state, queries_raw, k, metric=metric,
                                    use_kernel=plan.use_kernel)
     if plan.route == ROUTE_COARSE:
-        raise NotImplementedError(
-            "the coarse route needs the compressed tier (codes + the qcoarse "
-            "kernel), which is a later slice of the port")
+        table = codes if codes is not None else codes_lib.build(state)
+        return search.coarse_search(state, table, queries_raw, k,
+                                    ef_coarse=plan.ef_coarse, metric=metric,
+                                    use_kernel=plan.use_kernel)
     ids, dists, _ = batched_hnsw_search(state, queries_raw, k, ef=plan.ef)
     return ids, dists
 

@@ -1,9 +1,11 @@
-"""Exact deterministic k-NN over the fixed-point arena.
+"""Exact deterministic k-NN over the fixed-point arena, and the
+compressed tier's coarse route.
 
 Scoring is a wide integer matmul and selection a (score, id)
 lexicographic top-k, so results — tie order included — are bit-identical
 everywhere. Scores are wide (unshifted Q(2f)) int64 values, lower is
-better for both metrics (dot scores are negated).
+better for both metrics (dot scores are negated). ``coarse_search`` scans
+the int8 code table (qcoarse) and re-ranks its candidates exactly.
 """
 from __future__ import annotations
 
@@ -11,8 +13,10 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core import codes as codes_lib
 from repro_torch.core.sorting import sort2
 from repro_torch.core.state import MemoryState
+from repro_torch.kernels.qcoarse import ops as qcoarse_ops
 from repro_torch.kernels.qgemm import ops as qgemm_ops
 from repro_torch.kernels.qtopk import ops as qtopk_ops
 
@@ -102,6 +106,62 @@ def merge_candidates(scores: torch.Tensor, ids: torch.Tensor, k: int
     s_out = s_sorted[..., :k]
     i_out = i_sorted[..., :k]
     return s_out, torch.where(s_out < INF, i_out, -1)
+
+
+def coarse_search(state: MemoryState, table: codes_lib.CodeTable,
+                  queries_raw: torch.Tensor, k: int, *, ef_coarse: int,
+                  metric: str = METRIC_L2, use_kernel: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compressed-tier k-NN: int8 coarse scan, exact Q16.16 re-rank.
+
+    1. Coarse scan: integer scores of the query weights against the code
+       table (qcoarse on the card), ``norms - 2*S`` for L2 and ``-S`` for
+       dot, dead rows at INF; candidates are the ``ef = min(ef_coarse,
+       capacity)`` best by (approx score, slot) (qtopk on the card).
+    2. Re-rank: the candidates' exact wide scores, merged by
+       ``merge_candidates`` with the (score, id) tie-break of every read
+       path. The exact scores come from one ``score_block`` of the queries
+       against the union of the candidate slots (qgemm on the card),
+       gathered per query: integer sums are order-invariant, so they equal
+       the full scan's scores without a [nq, ef, d] gather.
+
+    Whenever the candidates cover every live row (``ef_coarse >=
+    live_count``) the result equals ``exact_search``'s bit for bit.
+    Returns (ids [nq, k] int64, scores [nq, k] int64), missing results
+    (-1, INF). Dispatch goes by device, as in ``score_block``."""
+    n = state.capacity
+    ef = min(ef_coarse, n)
+    if ef < k:
+        raise ValueError(
+            f"coarse route needs ef_coarse >= k (got ef_coarse={ef_coarse}, "
+            f"k={k}, capacity={n}): a candidate set of {ef} cannot "
+            f"yield {k} results")
+
+    w = codes_lib.query_weights(queries_raw, table, metric)
+    s = qcoarse_ops.qcoarse(w, table.codes)
+    if metric == METRIC_L2:
+        approx = table.norms[None, :] - 2 * s
+    else:
+        approx = -s
+    approx = torch.where(state.valid[None, :], approx, INF)
+
+    # candidates by (approx score, slot): slots are unique, so the set is
+    # deterministic; INF candidates may differ between the kernel and the
+    # full sort, but every slot is in range and INF ones are masked below
+    slots = torch.arange(n, dtype=torch.int64, device=approx.device)
+    if _kernel_route(queries_raw, use_kernel):
+        s_c, slot_c = _topk_by_score_kernel(approx, slots, ef)
+    else:
+        s_c, slot_c = topk_by_score(approx, slots, ef)
+
+    uniq, col = torch.unique(slot_c, return_inverse=True)
+    exact = torch.gather(score_block(queries_raw, state.vectors[uniq], metric,
+                                     use_kernel), 1, col)       # [nq, ef]
+    live = state.valid[slot_c] & (s_c < INF)
+    exact = torch.where(live, exact, INF)
+    cand_ids = torch.where(live, state.ids[slot_c], TOMBSTONE_ID)
+    s_out, i_out = merge_candidates(exact, cand_ids, k)
+    return i_out, s_out
 
 
 def merge_topk(scores_a: torch.Tensor, ids_a: torch.Tensor,

@@ -9,16 +9,19 @@ and the card's checks compare against).
   qboundary — fused float→Q-encode→integer L2-normalize (the boundary)
   qgemm     — exact int64 scoring matmul of raw fixed-point rows
   qtopk     — deterministic k smallest (score, key) per row
+  qcoarse   — exact int64 weighted dot of int32 weights and int8 codes
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.kernels.qboundary import ops as _qboundary_ops
+from repro_torch.kernels.qcoarse import ops as _qcoarse_ops
 from repro_torch.kernels.qgemm import ops as _qgemm_ops
 from repro_torch.kernels.qtopk import ops as _qtopk_ops
 
-_OPS = {"qboundary": _qboundary_ops, "qgemm": _qgemm_ops, "qtopk": _qtopk_ops}
+_OPS = {"qboundary": _qboundary_ops, "qgemm": _qgemm_ops, "qtopk": _qtopk_ops,
+        "qcoarse": _qcoarse_ops}
 
 
 def launch_counts() -> Dict[str, int]:

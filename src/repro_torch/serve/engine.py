@@ -4,13 +4,15 @@ The port of ``repro.serve.engine`` for one shard, no durability, no
 replicas and no network: the paper's §5.3 boundary and the audit trail.
 
   embedding (float32) ──boundary.normalize──▶ INSERT log ──bulk_apply──▶ state
-  query (float32)     ──boundary.admit_query──▶ planned exact / HNSW k-NN
+  query (float32)     ──boundary.admit_query──▶ planned exact / HNSW /
+                                               coarse (int8 code table) k-NN
 
 The engine takes the float32 embeddings ``[B, d]`` that the reference
 engine's embedder produces; everything after that point follows the
 reference step for step (id allocation, canonical batch logs, the re-link
-schedule, ``relink_ts`` and ``graph_gen``), so the same embeddings give the
-same ``state_hash``, ``memory_hash`` and ``retrieval_hash``. The LM that
+schedule, ``relink_ts`` and ``graph_gen``, the code table's lazy build,
+refresh and drop), so the same embeddings give the same ``state_hash``,
+``memory_hash`` and ``retrieval_hash``. The LM that
 produces embeddings, and ``generate``, arrive with a later slice.
 """
 from __future__ import annotations
@@ -21,7 +23,8 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import boundary, commands, hashing, hnsw, machine, query
+from repro_torch.core import (boundary, codes, commands, hashing, hnsw,
+                              machine, query)
 from repro_torch.core.contracts import DEFAULT_CONTRACT, PrecisionContract
 from repro_torch.core.state import MemoryState, init_state, resolve_device
 
@@ -29,8 +32,8 @@ from repro_torch.core.state import MemoryState, init_state, resolve_device
 @dataclasses.dataclass
 class ServeConfig:
     """The reference's field names. This slice serves one flat in-memory
-    shard; the sharded, durable, replicated, networked and compressed-tier
-    fields raise when set."""
+    shard with its compressed tier (``ef_coarse``, ``route="coarse"``); the
+    sharded, durable, replicated and networked fields raise when set."""
     capacity: int = 4096
     retrieve_k: int = 4
     max_new_tokens: int = 32
@@ -59,7 +62,7 @@ _NOT_SERVED = {  # field: (value meaning "unset", the slice that serves it)
     "durable_dir": (None, "durability"), "checkpoint_every": (0, "durability"),
     "retain_snapshots": (0, "durability"), "group_commit": (None, "durability"),
     "compaction": (None, "durability"), "replicas": (0, "replication"),
-    "follow": (None, "replication"), "ef_coarse": (0, "compressed-tier"),
+    "follow": (None, "replication"),
 }
 
 
@@ -70,9 +73,6 @@ class MemoryAugmentedEngine:
                 raise NotImplementedError(
                     f"ServeConfig.{name} is served by the {slice_name} slice "
                     f"of the port, not by the flat in-memory engine")
-        if serve_cfg.route == query.ROUTE_COARSE:
-            raise NotImplementedError(
-                "route='coarse' needs the compressed-tier slice of the port")
         self.device = resolve_device(device)
         self.d_model = d_model
         self.sc = serve_cfg
@@ -87,6 +87,10 @@ class MemoryAugmentedEngine:
         self.relink_ts: List[int] = []
         self._deletes_since_relink = 0
         self._cmds_since_relink_check = 0
+        # compressed tier (DESIGN.md §10): built on the first coarse read,
+        # then refreshed after every insert batch and dropped on delete;
+        # always equal to codes.build(self.memory)
+        self._code_table: Optional[codes.CodeTable] = None
 
     def _as_f32(self, x) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
@@ -117,6 +121,7 @@ class MemoryAugmentedEngine:
         batch_log = commands.insert_batch(ids, raw, self.sc.contract)
         self.log = self.log.concat(batch_log)
         self.memory = machine.bulk_apply(self.memory, batch_log)
+        self._refresh_code_tables(ids)
         self._cmds_since_relink_check += n
         self._maybe_relink()
         return ids.cpu().tolist()
@@ -133,10 +138,39 @@ class MemoryAugmentedEngine:
         before = self.live_count()
         self.memory = machine.bulk_apply(self.memory, batch_log)
         removed = before - self.live_count()
+        # deletes touch layout-dependent slots; the lazy rebuild is a pure
+        # function of the live rows, so it is always bit-identical
+        self._code_table = None
         self._deletes_since_relink += removed
         self._cmds_since_relink_check += len(batch_log)
         self._maybe_relink()
         return removed
+
+    # ------------------------------------------------------------------ #
+    # compressed tier: the code table (DESIGN.md §10)
+    # ------------------------------------------------------------------ #
+
+    def _ensure_code_tables(self) -> None:
+        """Build the code table from the live state if there is none."""
+        if self._code_table is None:
+            self._code_table = codes.build(self.memory)
+
+    def _refresh_code_tables(self, inserted_ids: torch.Tensor) -> None:
+        """After an insert batch, once a table exists: re-encode the slots
+        that hold this batch's ids (engine writes are fresh INSERTs, so
+        those are exactly the touched slots); a param drift rebuilds
+        inside ``codes.refresh``."""
+        if self._code_table is None:
+            return
+        touched = torch.nonzero(torch.isin(self.memory.ids, inserted_ids)
+                                & self.memory.valid).reshape(-1)
+        self._code_table = codes.refresh(self._code_table, self.memory,
+                                         touched)
+
+    def _coarse_enabled(self) -> bool:
+        """Whether the engine serves the compressed tier (the reference's
+        durable mode checkpoints the code table only then)."""
+        return self.sc.ef_coarse > 0 or self.sc.route == query.ROUTE_COARSE
 
     # ------------------------------------------------------------------ #
     # graph maintenance: scheduled deterministic re-link
@@ -155,7 +189,8 @@ class MemoryAugmentedEngine:
 
     def relink_now(self) -> int:
         """Re-link the graph from its live rows now; records the cursor on
-        ``relink_ts`` so ``replay_log_fresh`` can reproduce it."""
+        ``relink_ts`` so ``replay_log_fresh`` can reproduce it. The code
+        table stays: the graph is not in it."""
         t = self._cursor()
         self.memory = hnsw.relink(self.memory)
         self.relink_ts.append(t)
@@ -181,7 +216,10 @@ class MemoryAugmentedEngine:
             ef_coarse=self.sc.ef_coarse, dim=self.d_model,
             graph_gen=self.graph_gen)
         self.last_plan = plan
-        ids, scores = query.execute_plan(self.memory, q_raw, k, plan)
+        if plan.route == query.ROUTE_COARSE:
+            self._ensure_code_tables()
+        ids, scores = query.execute_plan(self.memory, q_raw, k, plan,
+                                         codes=self._code_table)
         return ids.cpu().numpy(), scores.cpu().numpy()
 
     def retrieval_hash(self, query_embeddings, k: Optional[int] = None) -> int:

@@ -8,7 +8,8 @@ The recipe: ``n_insert`` float32 embeddings and ``n_query`` queries drawn
 from ``numpy.random.default_rng(seed)`` (normal, unit scale, in that
 order), then ``n_delete`` distinct ids to delete; INSERT ids 0..n-1 as one
 canonical batch through ``bulk_apply``, the deletes as one batch, then
-k-NN on the exact route and on the HNSW route.
+k-NN on the exact route, the HNSW route and the coarse route (the code
+table of the final state, at ``ef_coarse`` and at ``ef_coarse_cover``).
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.core import boundary, commands, hashing, machine, query, search
+from repro_torch.core import (boundary, codes, commands, hashing, machine,
+                              query, search)
 from repro_torch.core.state import init_state
 
 FIXTURE = (pathlib.Path(__file__).resolve().parent / "fixtures"
@@ -55,10 +57,17 @@ def run(spec: Dict, device) -> Dict:
     k = spec["k"]
     ex_ids, ex_s = search.exact_search(st, q, k)
     hn_ids, hn_s, _ = query.batched_hnsw_search(st, q, k, ef=spec["ef"])
+    table = codes.build(st)
+    coarse = {name: query.retrieval_hash(*search.coarse_search(
+        st, table, q, k, ef_coarse=spec[key]))
+        for name, key in (("coarse", "ef_coarse"),
+                          ("coarse_cover", "ef_coarse_cover"))}
     return {"hash_pytree": hashing.hash_state_device(st),
             "content_hash": hashing.content_hash(st),
+            "table_hash": codes.table_hash(table),
             "retrieval_hash": {"exact": query.retrieval_hash(ex_ids, ex_s),
-                               "hnsw": query.retrieval_hash(hn_ids, hn_s)}}
+                               "hnsw": query.retrieval_hash(hn_ids, hn_s),
+                               **coarse}}
 
 
 def check(device, path=FIXTURE) -> Dict:

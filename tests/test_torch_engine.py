@@ -12,8 +12,10 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro  # noqa: E402,F401
 from repro.configs import get_reduced_config  # noqa: E402
+from repro.core import codes as jcodes  # noqa: E402
 from repro.models import transformer as tf  # noqa: E402
 from repro.serve import engine as jengine  # noqa: E402
+from repro_torch.core import codes as tcodes  # noqa: E402
 from repro_torch.core import hnsw as thnsw  # noqa: E402
 from repro_torch.core.state import init_state  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
@@ -70,11 +72,21 @@ def test_engine_retrieval_matches(pair, route):
 
 
 def test_engine_refuses_unserved_modes_and_silent_cpu():
-    for kw in (dict(shards=2), dict(durable_dir="/x"), dict(replicas=1),
-               dict(ef_coarse=8), dict(route="coarse")):
+    for kw in (dict(shards=2), dict(durable_dir="/x"), dict(replicas=1)):
         with pytest.raises(NotImplementedError):
             tengine.MemoryAugmentedEngine(8, tengine.ServeConfig(**kw),
                                           device="cpu")
+    # the compressed tier is served: both ways of asking for it build an
+    # engine that answers on the coarse route
+    rng = np.random.default_rng(2)
+    for kw in (dict(ef_coarse=8), dict(route="coarse", ef_coarse=8)):
+        eng = tengine.MemoryAugmentedEngine(
+            8, tengine.ServeConfig(capacity=16, exact_threshold=0, ef=2,
+                                   **kw), device="cpu")
+        assert eng._coarse_enabled()
+        eng.insert_documents(rng.normal(size=(12, 8)).astype(np.float32))
+        ids, _ = eng.retrieve(rng.normal(size=(2, 8)).astype(np.float32), 2)
+        assert eng.last_plan.route == "coarse" and ids.shape == (2, 2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_state(4, 4)
@@ -97,3 +109,71 @@ def test_relink_policy_schedule_matches():
     assert t.relink_ts == [16] and t.graph_gen == 1
     assert t.replay_log_fresh() == t.state_hash()
     assert dataclasses.asdict(jpol) == dataclasses.asdict(pol)
+
+
+@pytest.fixture(scope="module")
+def coarse_pair(pair):
+    """A JAX / port engine pair serving the compressed tier, fed the same
+    embeddings (the reference engine's own embedder). With
+    exact_threshold=0 and ef=4 the planner's rule 5 picks the coarse route
+    on its own; ``route="coarse"`` forces it."""
+    j0, _, _, _ = pair
+    sc = dict(capacity=128, retrieve_k=3, ef=4, ef_coarse=16,
+              exact_threshold=0)
+    j = jengine.MemoryAugmentedEngine(j0.cfg, j0.params, jengine.ServeConfig(
+        max_new_tokens=4, s_cache=96, context_tokens=8, **sc))
+    t = tengine.MemoryAugmentedEngine(j0.cfg.d_model,
+                                      tengine.ServeConfig(**sc), device="cpu")
+    return j, t
+
+
+def _embed(j, tokens):
+    return np.asarray(j._embed_fn(j.params, jnp.asarray(tokens)))
+
+
+def test_engine_coarse_route_matches_through_build_refresh_and_drop(
+        coarse_pair):
+    j, t = coarse_pair
+    rng = np.random.default_rng(3)
+    vocab = j.cfg.vocab_size
+
+    def insert(n):
+        docs = rng.integers(0, vocab, (n, 16), dtype=np.int32)
+        assert j.insert_documents(docs) == t.insert_documents(_embed(j, docs))
+
+    def check(stage):
+        prompts = rng.integers(0, vocab, (4, 10), dtype=np.int32)
+        q = _embed(j, prompts)
+        for route in ("auto", "coarse"):
+            j.sc.route = t.sc.route = route
+            try:
+                jid, jsc = j.retrieve(prompts)
+                tid, tsc = t.retrieve(q)
+                assert t.last_plan.route == "coarse", stage
+                assert dataclasses.asdict(t.last_plan) == \
+                    dataclasses.asdict(j.last_plan), stage
+                assert np.array_equal(tid, jid), stage
+                assert np.array_equal(tsc, jsc), stage
+                assert t.retrieval_hash(q, 5) == \
+                    j.retrieval_hash(prompts, 5), stage
+            finally:
+                j.sc.route = t.sc.route = "auto"
+        assert t._code_table is not None
+        assert tcodes.table_hash(t._code_table) == \
+            jcodes.table_hash(j._code_tables[0]) == \
+            tcodes.table_hash(tcodes.build(t.memory)), stage
+        assert t.state_hash() == j.state_hash(), stage
+
+    insert(40)
+    assert t._code_table is None  # built lazily, on the first coarse read
+    check("built")
+    insert(9)                     # refreshed after the batch
+    check("refreshed")
+    assert j.delete_documents([1, 5, 33]) == t.delete_documents([1, 5, 33])
+    assert t._code_table is None  # dropped on delete, rebuilt on read
+    check("rebuilt")
+    assert j.relink_now() == t.relink_now()
+    table = t._code_table
+    check("relinked")             # re-link leaves the table alone
+    assert t._code_table is table
+    assert t.replay_log_fresh() == t.state_hash()

@@ -161,6 +161,18 @@ def test_plan_query_grid_matches_reference():
             jq.plan_query(10, 70, 64, route=route)
         with pytest.raises(ValueError):
             tq.plan_query(10, 70, 64, route=route)
-    with pytest.raises(NotImplementedError, match="compressed tier"):
-        tq.execute_plan(None, None, 1, tq.plan_query(10, 1, 8, route="coarse",
-                                                     ef_coarse=8))
+    # execute_plan runs the coarse route (the compressed tier), with the
+    # same answers as the reference's
+    s = jm.bulk_apply(j_init(16, 8), jc.insert_batch(
+        jnp.arange(10, dtype=jnp.int64),
+        jb.normalize_embedding(np.random.default_rng(3).normal(
+            size=(10, 8)).astype(np.float32))))
+    q = np.array(jb.admit_query(np.random.default_rng(4).normal(
+        size=(2, 8)).astype(np.float32)))
+    plan_kw = dict(route="coarse", ef_coarse=8, dim=8)
+    want = jq.execute_plan(s, jnp.asarray(q), 3,
+                           jq.plan_query(10, 3, 8, **plan_kw))
+    got = tq.execute_plan(to_port_state(s), torch.from_numpy(q), 3,
+                          tq.plan_query(10, 3, 8, **plan_kw))
+    for g, w in zip(got, want):
+        assert np.array_equal(np_(g), np.asarray(w))

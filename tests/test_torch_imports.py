@@ -35,6 +35,9 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert len(mods) >= 20
+    assert {"repro_torch.core.codes", "repro_torch.core.snapshot",
+            "repro_torch.kernels.qcoarse.ops",
+            "repro_torch.kernels.qcoarse.kernel"} <= set(mods)
 
 
 def _imported_names(path):
@@ -47,6 +50,7 @@ def _imported_names(path):
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
+                                  ROOT / "scripts" / "probe_qcoarse.py",
                                   ROOT / "tests" / "_torch_golden.py",
                                   *sorted(PKG.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))

@@ -13,6 +13,7 @@ from repro.kernels.qgemm import ref as jqgemm_ref  # noqa: E402
 from repro.kernels.qtopk import ops as jqtopk  # noqa: E402
 from repro.kernels.qtopk import ref as jqtopk_ref  # noqa: E402
 from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels.qcoarse import ops as tqcoarse  # noqa: E402
 from repro_torch.kernels.qgemm import ops as tqgemm  # noqa: E402
 from repro_torch.kernels.qgemm import ref as tqgemm_ref  # noqa: E402
 from repro_torch.kernels.qtopk import ops as tqtopk  # noqa: E402
@@ -111,7 +112,10 @@ def test_launch_counts_stay_zero_on_cpu():
     tqgemm.qgemm(torch.from_numpy(q), torch.from_numpy(db))
     tqtopk.qtopk(torch.zeros((1, 8), dtype=torch.int64),
                  torch.arange(8, dtype=torch.int32), 3)
-    assert kernels.launch_counts() == {"qboundary": 0, "qgemm": 0, "qtopk": 0}
+    tqcoarse.qcoarse(torch.ones((1, 8), dtype=torch.int32),
+                     torch.ones((3, 8), dtype=torch.int8))
+    assert kernels.launch_counts() == {"qboundary": 0, "qgemm": 0, "qtopk": 0,
+                                       "qcoarse": 0}
 
 
 @pytest.mark.cuda
