@@ -9,9 +9,17 @@ Phases (any failure raises and exits non-zero):
    (one ``nvcc`` per source, all at once);
 2. kernels — each kernel (qboundary, qgemm, qtopk, qcoarse) against its
    plain PyTorch version on the card, bitwise, at the main path's shapes
-   and at edge shapes; then timed with CUDA events beside its plain
-   version, the one PyTorch call that computes the same function where
-   there is one, and its bound (qtopk also at k = ef_coarse = 256);
+   and at edge shapes (qgemm also on int16 and int64 rows and on values
+   beyond +-2^23 in some tiles, against the CPU's int64 product; each
+   qgemm / qcoarse case prints the load path it took); then timed with
+   CUDA events beside its plain version, the one PyTorch call that
+   computes the same function where there is one, and its bound (qtopk
+   also at k = ef_coarse = 256, qgemm also at the coarse re-rank's
+   shape); ``exact_search`` over every storage type the contracts give
+   (Q8.8, Q2.13, Q16.16 with and without unit norm, Q32.32, d = 8200)
+   equals the CPU's. The build step prints ptxas registers and spills per
+   kernel and the integer tensor-core (IMMA/IGMMA) and IDP4A instruction
+   counts of each library (``cuobjdump -sass``);
 3. engine — the flat engine at full width (d = 2304, gemma2-2b's d_model;
    131072-row arena; Q16.16; ef_coarse = 256): ingest seeded float32
    embeddings in batches of 512, delete 1 % and re-link, retrieve batches
@@ -22,7 +30,8 @@ Phases (any failure raises and exits non-zero):
    then 50); then the coarse route at full coverage (ef_coarse >= live
    rows) must equal the exact route's ``retrieval_hash``, and one more
    insert batch refreshes the table before a last coarse read. Launch
-   counts are zeroed just before and read just after. Then the refreshed
+   counts are zeroed just before and read just after. One warm exact and
+   one warm coarse batch are then broken into stages with CUDA events. Then the refreshed
    table equals ``codes.build`` of the state, ``replay_log_fresh() ==
    state_hash()``, and the card's retrievals (all three routes) and code
    table equal the same state's on the CPU through the plain versions;
@@ -154,35 +163,82 @@ def check_qboundary(torch, dev, rng):
 
 
 def check_qgemm(torch, dev, rng):
-    from repro_torch.kernels.qgemm import ops, ref
+    from repro_torch.kernels.qgemm import kernel, ops, ref
     acc = dict(max_abs_err=0, mismatches=0)
-    cases = [(1, 1, 8), (4, 16, 32), (7, 100, 384), (130, 257, 640),
-             (16, 1000, 768), (3, 33, 8192), (64, 4099, 2304)]
-    for nq, m, dd in cases:
-        q = torch.from_numpy(rng.integers(-65536, 65537, (nq, dd)).astype(np.int32))
-        db = torch.from_numpy(rng.integers(-65536, 65537, (m, dd)).astype(np.int32))
-        q, db = q.to(dev), db.to(dev)
-        compare(torch, ops.qgemm(q, db), ref.qgemm_ref(q, db), acc)
+    paths = {}
+
+    def run(name, q, db, exact_f64=True):
+        """Kernel vs the float64 plain version where that is exact
+        (|raw| <= 2^16), else vs the CPU's int64 product."""
+        paths[name] = kernel.path(q, db)
+        got = ops.qgemm(q, db)
+        want = (ref.qgemm_ref(q, db) if exact_f64
+                else ref.qgemm_ref(q.cpu(), db.cpu()))
+        compare(torch, got, want, acc)
+        return got
+
+    def ints(lo, hi, shape, dtype=np.int32):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64)
+                                .astype(dtype)).to(dev)
+
+    for nq, m, dd in [(1, 1, 8), (4, 16, 32), (7, 100, 384), (130, 257, 640),
+                      (16, 1000, 768), (3, 33, 8192), (64, 4099, 2304),
+                      (5, 77, 7), (3, 9, 101)]:
+        run(f"int32 [{nq}, {dd}] x [{m}, {dd}]",
+            ints(-65536, 65537, (nq, dd)), ints(-65536, 65537, (m, dd)))
     ext = torch.full((2, 8192), 65536, dtype=torch.int32, device=dev)
     ext[1] = -65536
-    got = ops.qgemm(ext, ext)
-    compare(torch, got, ref.qgemm_ref(ext, ext), acc)
-    if int(got[0, 0]) != 8192 * 65536 * 65536:
+    if int(run("int32 +-2^16, d=8192", ext, ext)[0, 0]) != 8192 * 65536 * 65536:
         raise AssertionError("qgemm extreme value wrong")
-    # the main path's scan: 64 queries against the whole arena
+    # values beyond +-2^23 in some (tile, stage) pairs and not others: both
+    # sides of the per-stage limb switch in one launch
+    q, db = ints(-65536, 65537, (70, 300)), ints(-65536, 65537, (200, 300))
+    q[3, 70], q[66, 299] = 2**31 - 1, -2**31      # query tiles 0 and 1
+    db[130, 150], db[7, 5] = -2**31, 2**23       # row tiles 2 and 0
+    db[199, 0] = -(2**23) - 1
+    run("int32 +-2^23 mixed", q, db, exact_f64=False)
+    run("int32 full range", ints(-2**31, 2**31, (64, 768)),
+        ints(-2**31, 2**31, (1000, 768)), exact_f64=False)
+    for v in (2**31 - 1, -2**31, 2**23 - 1, -2**23, 2**23, 0x00FFFFFF):
+        e = torch.full((2, 8192), v, dtype=torch.int32, device=dev)
+        e[1] = -v if v != -2**31 else 2**31 - 1
+        run(f"int32 extremes {v}, d=8192", e, e, exact_f64=False)
+    for nq, m, dd in [(5, 77, 101), (64, 4099, 2304), (3, 33, 8192)]:
+        run(f"int16 [{nq}, {dd}] x [{m}, {dd}]",
+            ints(-2**15, 2**15, (nq, dd), np.int16),
+            ints(-2**15, 2**15, (m, dd), np.int16), exact_f64=False)
+    for nq, m, dd in [(5, 77, 101), (64, 300, 2304)]:
+        run(f"int64 [{nq}, {dd}] x [{m}, {dd}]",
+            ints(-2**63, 2**63 - 1, (nq, dd), np.int64),
+            ints(-2**63, 2**63 - 1, (m, dd), np.int64), exact_f64=False)
+    # rows whose base is not 16-byte aligned take the plain loads
+    buf = ints(-65536, 65537, (34 * 64,))
+    for off, dd in ((1, 64), (2, 62)):
+        dbv = buf[off:off + 33 * dd].reshape(33, dd)
+        run(f"int32 unaligned view +{off}, d={dd}",
+            ints(-65536, 65537, (3, dd)), dbv)
+    # the coarse route's re-rank: 64 queries x the union of <= 64 x 256
+    # candidate rows, gathered (a contiguous copy)
     nq, nn, d = QUERIES, CAPACITY, DIM
-    q = torch.from_numpy(rng.integers(-65536, 65537, (nq, d)).astype(np.int32)).to(dev)
+    q = ints(-65536, 65537, (nq, d))
     db = torch.randint(-65536, 65537, (nn, d), dtype=torch.int32, device=dev)
-    compare(torch, ops.qgemm(q, db), ref.qgemm_ref(q, db), acc)
+    union = db[torch.randperm(nn, device=dev)[:QUERIES * EF_COARSE]]
+    run(f"int32 re-rank [{nq}, {d}] x [{union.shape[0]}, {d}]", q, union)
+    ms_rerank = cuda_ms(torch, lambda: ops.qgemm(q, union), 20)
+    b_rerank, _ = bound_ms((nq + union.shape[0]) * d * 4 + nq * union.shape[0] * 8,
+                           2.0 * nq * union.shape[0] * d, INT8_TC_OPS_PER_S)
+    # the main path's scan: 64 queries against the whole arena
+    run(f"int32 main [{nq}, {d}] x [{nn}, {d}]", q, db)
     ms = cuda_ms(torch, lambda: ops.qgemm(q, db), 10)
     plain = cuda_ms(torch, lambda: ref.qgemm_ref(q, db), 3)
     qf, dbf = q.to(torch.float64), db.to(torch.float64)
     lib = cuda_ms(torch, lambda: torch.matmul(qf, dbf.T), 3)
-    del qf, dbf, db
+    del qf, dbf, db, union
     b, by = bound_ms((nq + nn) * d * 4 + nq * nn * 8, 2.0 * nq * nn * d,
                      INT8_TC_OPS_PER_S)
     return dict(acc, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b, bound_by=by,
+                bound_ms=b, bound_by=by, paths=paths,
+                ms_rerank=ms_rerank, bound_ms_rerank=b_rerank,
                 shape=f"[{nq}, {d}] x [{nn}, {d}] i32 -> i64")
 
 
@@ -226,8 +282,9 @@ def check_qtopk(torch, dev, rng):
 
 
 def check_qcoarse(torch, dev, rng):
-    from repro_torch.kernels.qcoarse import ops, ref
+    from repro_torch.kernels.qcoarse import kernel, ops, ref
     acc = dict(max_abs_err=0, mismatches=0)
+    paths = {}
     wb = ops.W_BOUND
 
     def inputs(nq, nn, d):
@@ -235,25 +292,34 @@ def check_qcoarse(torch, dev, rng):
         c = rng.integers(-127, 128, (nn, d)).astype(np.int8)
         return torch.from_numpy(w).to(dev), torch.from_numpy(c).to(dev)
 
+    def run(name, w, c):
+        paths[name] = kernel.path(c)
+        got = ops.qcoarse(w, c)
+        compare(torch, got, ref.qcoarse_ref(w, c), acc)
+        return got
+
     for nq, nn, d in [(1, 1, 8), (4, 16, 32), (8, 128, 64), (128, 256, 512),
                       (7, 100, 384), (130, 257, 640), (3, 33, 8192),
                       (5, 77, 7), (3, 9, 101), (64, 4099, 2304)]:
-        w, c = inputs(nq, nn, d)
-        compare(torch, ops.qcoarse(w, c), ref.qcoarse_ref(w, c), acc)
-    # codes whose rows are not 4-byte aligned take the kernel's byte loads
+        run(f"[{nq}, {d}] x [{nn}, {d}]", *inputs(nq, nn, d))
+    # codes whose rows are not 16-byte aligned take the plain loads
     w, c = inputs(3, 34, 64)
     for off, d in ((1, 64), (2, 62)):
         cv = c.reshape(-1)[off:off + 33 * d].reshape(33, d)
-        wv = w[:, :d].contiguous()
-        compare(torch, ops.qcoarse(wv, cv), ref.qcoarse_ref(wv, cv), acc)
+        run(f"unaligned view +{off}, d={d}", w[:, :d].contiguous(), cv)
     ext_w = torch.full((2, 8192), wb, dtype=torch.int32, device=dev)
     ext_w[1] = -wb
     ext_c = torch.full((2, 8192), 127, dtype=torch.int8, device=dev)
     ext_c[1] = -127
-    got = ops.qcoarse(ext_w, ext_c)
-    compare(torch, got, ref.qcoarse_ref(ext_w, ext_c), acc)
+    got = run("+-W_BOUND x +-127, d=8192", ext_w, ext_c)
     if int(got[0, 0]) != 8192 * wb * 127:
         raise AssertionError("qcoarse extreme value wrong")
+    # all-255 low limbs against -128 codes: the planes' worst case
+    low_w = torch.full((2, 8192), 0x00FFFFFF, dtype=torch.int32, device=dev)
+    low_w[1] = -1
+    low_c = torch.full((3, 8192), -128, dtype=torch.int8, device=dev)
+    low_c[1] = 127
+    run("all-255 limbs x -128 / 127 codes, d=8192", low_w, low_c)
     try:
         ops.qcoarse(torch.zeros((2, 8193), dtype=torch.int32, device=dev),
                     torch.zeros((2, 8193), dtype=torch.int8, device=dev))
@@ -265,7 +331,7 @@ def check_qcoarse(torch, dev, rng):
     nq, nn, d = QUERIES, CAPACITY, DIM
     w, _ = inputs(nq, 1, d)
     c = torch.randint(-127, 128, (nn, d), dtype=torch.int8, device=dev)
-    compare(torch, ops.qcoarse(w, c), ref.qcoarse_ref(w, c), acc)
+    run(f"main [{nq}, {d}] x [{nn}, {d}]", w, c)
     ms = cuda_ms(torch, lambda: ops.qcoarse(w, c), 20)
     plain = cuda_ms(torch, lambda: ref.qcoarse_ref(w, c), 3)
     wf, cf = w.to(torch.float64), c.to(torch.float64)
@@ -274,8 +340,141 @@ def check_qcoarse(torch, dev, rng):
     b, by = bound_ms(nn * d + nq * d * 4 + nq * nn * 8, 2.0 * nq * nn * d,
                      INT8_TC_OPS_PER_S)
     return dict(acc, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b, bound_by=by,
+                bound_ms=b, bound_by=by, paths=paths,
                 shape=f"[{nq}, {d}] i32 x [{nn}, {d}] i8 -> i64")
+
+
+def load_test_module(name: str):
+    """A helper module of the tests (``tests/<name>.py``), loaded by path."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tests" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_search_contracts(torch, dev) -> dict:
+    """``exact_search`` on the card over every storage type the contracts
+    give (``tests/_torch_search_cases.py``: Q8.8, Q2.13, Q16.16 with and
+    without unit norm, Q32.32, and d = 8200) equals the CPU's, both
+    metrics. Returns the qgemm path each case took."""
+    import dataclasses
+    from repro_torch.core import search
+    from repro_torch.core.contracts import get_contract
+    from repro_torch.core.state import init_state
+    from repro_torch.kernels.qgemm import kernel
+    cases = load_test_module("_torch_search_cases")
+    paths = {}
+    for case in cases.CASES:
+        cap = 1031 if case == "Q16.16-d8200" else 4099  # CPU time
+        c = cases.make_case(case, cap, DIM, QUERIES, seed=1)
+        cap, dim = c["vectors"].shape
+        states = {}
+        for where in ("cpu", dev):
+            states[str(where)] = dataclasses.replace(
+                init_state(cap, dim, contract=get_contract(c["contract"]),
+                           device=where),
+                vectors=torch.from_numpy(c["vectors"]).to(where),
+                ids=torch.from_numpy(c["ids"]).to(where),
+                valid=torch.from_numpy(c["valid"]).to(where))
+        q = torch.from_numpy(c["queries"])
+        card = states[str(dev)]
+        paths[f"{case} [{QUERIES}, {dim}] x [{cap}, {dim}] "
+              f"{str(card.vectors.dtype).removeprefix('torch.')}"] = \
+            kernel.path(q.to(dev), card.vectors)
+        for metric in (search.METRIC_L2, search.METRIC_DOT):
+            want = search.exact_search(states["cpu"], q, K, metric=metric)
+            got = search.exact_search(card, q.to(dev), K, metric=metric)
+            if not (torch.equal(got[0].cpu(), want[0])
+                    and torch.equal(got[1].cpu(), want[1])):
+                raise AssertionError(
+                    f"exact_search {case} {metric}: card and CPU differ")
+    return paths
+
+
+def stage_breakdown(torch, eng, queries) -> dict:
+    """Per-stage CUDA-event times (ms) of one warm exact and one warm
+    coarse batch on the engine's state: each kernel call repeated alone on
+    the batch's own inputs, the rest as the remainder of the whole
+    search."""
+    from repro_torch.core import boundary, codes, search
+    from repro_torch.kernels.qcoarse import ops as qcoarse_ops
+    from repro_torch.kernels.qgemm import ops as qgemm_ops
+    from repro_torch.kernels.qtopk import ops as qtopk_ops
+    state, table = eng.memory, eng._code_table
+    q = boundary.admit_query(torch.from_numpy(queries).to(state.vectors.device),
+                             eng.sc.contract)
+    n = state.capacity
+
+    def ms(fn, iters=10):
+        return cuda_ms(torch, fn, iters)
+
+    # exact: qgemm, qtopk (k = 10), and norms / masks / id ranks
+    scores = search.score_block(q, state.vectors)
+    ids = torch.where(state.valid, state.ids, search.TOMBSTONE_ID)
+    ranks = torch.empty((n,), dtype=torch.int32, device=ids.device)
+    ranks[torch.argsort(ids, stable=True)] = torch.arange(
+        n, dtype=torch.int32, device=ids.device)
+    exact = {"total": ms(lambda: search.exact_search(state, q, K)),
+             "qgemm": ms(lambda: qgemm_ops.qgemm(q, state.vectors)),
+             "qtopk k=10": ms(lambda: qtopk_ops.qtopk(scores, ranks, K))}
+    exact["norms, masks, id argsort (rest)"] = (
+        exact["total"] - exact["qgemm"] - exact["qtopk k=10"])
+    # coarse: qcoarse, qtopk (k = 256), re-rank qgemm, and the rest
+    w = codes.query_weights(q, table, search.METRIC_L2)
+    approx = torch.where(state.valid[None, :],
+                         table.norms[None, :] - 2 * qcoarse_ops.qcoarse(
+                             w, table.codes), search.INF)
+    slots = torch.arange(n, dtype=torch.int32, device=q.device)
+    _, slot_c = search._topk_by_score_kernel(approx, slots.to(torch.int64),
+                                             EF_COARSE)
+    union = state.vectors[torch.unique(slot_c)]
+    coarse = {"total": ms(lambda: search.coarse_search(
+                  state, table, q, K, ef_coarse=EF_COARSE)),
+              "qcoarse": ms(lambda: qcoarse_ops.qcoarse(w, table.codes)),
+              f"qtopk k={EF_COARSE}": ms(lambda: qtopk_ops.qtopk(
+                  approx, slots, EF_COARSE)),
+              f"re-rank qgemm [{QUERIES}, {union.shape[0]}]": ms(
+                  lambda: qgemm_ops.qgemm(q, union))}
+    coarse["weights, approx, unique, gather, merge (rest)"] = (
+        coarse["total"] - sum(v for k, v in coarse.items() if k != "total"))
+    return {"exact": exact, "coarse": coarse}
+
+
+def sass_counts(names) -> dict:
+    """Integer tensor-core (IMMA / IGMMA) and IDP4A instructions in each
+    built library, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name in names:
+        text = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        ops = []
+        for ln in text.splitlines():
+            # "/*0a60*/  @P0 IGMMA.64x64x32.S8.S8 R24, ... ;  /* 0x... */"
+            tok = (ln.split("*/", 1)[1].split("/*")[0].split()
+                   if "*/" in ln else [])
+            if tok and tok[0].startswith("@"):  # predicated
+                tok = tok[1:]
+            if tok:
+                ops.append(tok[0])
+        out[name] = {
+            "IMMA/IGMMA": sum(o.startswith(("IMMA", "IGMMA")) for o in ops),
+            "IDP4A": sum(o.startswith("IDP4A") for o in ops)}
+    return out
+
+
+def ptxas_report(name: str):
+    """(kernel, registers/spill line) pairs of ``nvcc -Xptxas -v``."""
+    from repro_torch.kernels import _build
+    entry = None
+    for line in _build.PTXAS_LOG.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif entry and ("registers" in line or "spill" in line):
+            yield entry, line.split(":", 2)[-1].strip()
 
 
 # --------------------------------------------------------------------------- #
@@ -358,6 +557,9 @@ def run_engine(torch, dev, n_docs: int, seed: int):
             f"{len(warm)} batches: p50 {statistics.median(warm):.3f} "
             f"ms/batch, min {min(warm):.3f}, max {max(warm):.3f}")
     log(f"[engine] kernel launches on the main path: {counts}")
+    for route, stages in stage_breakdown(torch, eng, queries[1]).items():
+        log(f"[engine] one warm {route} batch by stage (CUDA events, ms): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     for route in ("hnsw", "coarse"):
@@ -511,10 +713,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
-    spec = importlib.util.spec_from_file_location(
-        "_torch_golden", ROOT / "tests" / "_torch_golden.py")
-    golden = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(golden)
+    golden = load_test_module("_torch_golden")
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -529,10 +728,10 @@ def main() -> int:
     secs = _build.build_all()
     log(f"[build] {time.perf_counter() - t0:.1f} s wall; per kernel "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
-    for name, text in _build.PTXAS_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    for name in _build.KERNELS:
+        for entry, line in ptxas_report(name):
+            log(f"[build] {name} {entry}: {line}")
+    log(f"[build] SASS instruction counts: {sass_counts(_build.KERNELS)}")
 
     rng = np.random.default_rng(args.seed + 1)
     results = {
@@ -549,6 +748,19 @@ def main() -> int:
             f" ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
         if r["max_abs_err"] != 0 or r["mismatches"] != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
+    for name in ("qgemm", "qcoarse"):
+        for case, path in results[name]["paths"].items():
+            log(f"[kernel] {name} {case}: {path}")
+    t0 = time.perf_counter()
+    for case, path in check_search_contracts(torch, dev).items():
+        log(f"[search] exact_search {case}: card == CPU (l2 and dot), "
+            f"qgemm path {path}")
+    log(f"[search] every storage type answered on the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+    r = results["qgemm"]
+    log(f"[kernel] qgemm at the coarse re-rank's shape ([{QUERIES}, {DIM}] x "
+        f"[{QUERIES * EF_COARSE}, {DIM}] gathered rows): {r['ms_rerank']:.4f} "
+        f"ms (bound {r['bound_ms_rerank']:.4f} ms)")
     r = results["qtopk"]
     log(f"[kernel] qtopk at k={EF_COARSE} (the coarse route's candidates): "
         f"{r['ms_at_ef_coarse']:.4f} ms (plain "

@@ -31,18 +31,42 @@ def _kernel_route(x: torch.Tensor, use_kernel: bool) -> bool:
     return use_kernel or x.device.type == "cuda"
 
 
+def _wide_dot_kernel(queries_raw: torch.Tensor, db_raw: torch.Tensor
+                     ) -> torch.Tensor:
+    """The int64 product of the rows through qgemm, equal to the plain
+    int64 matmul bit for bit (modulo 2^64) for every storage type.
+
+    Mixed operand types are promoted to the wider one first. Depths above
+    qgemm's ``MAX_DIM`` are cut into chunks of at most ``MAX_DIM`` (each
+    a contiguous copy of its columns) whose int64 products are summed:
+    integer sums are exact and order-invariant, and wrap the same way."""
+    dtype = torch.promote_types(queries_raw.dtype, db_raw.dtype)
+    q, db = queries_raw.to(dtype), db_raw.to(dtype)
+    d = q.shape[-1]
+    if d <= qgemm_ops.MAX_DIM:
+        return qgemm_ops.qgemm(q.contiguous(), db.contiguous())
+    out = None
+    for k0 in range(0, d, qgemm_ops.MAX_DIM):
+        k1 = min(d, k0 + qgemm_ops.MAX_DIM)
+        part = qgemm_ops.qgemm(q[:, k0:k1].contiguous(),
+                               db[:, k0:k1].contiguous())
+        out = part if out is None else out + part
+    return out
+
+
 def score_block(queries_raw: torch.Tensor, db_raw: torch.Tensor,
                 metric: str = METRIC_L2, use_kernel: bool = False
                 ) -> torch.Tensor:
     """Wide integer scores [nq, nd] int64; lower = better.
 
     Kernel dispatch goes by device, not by ``use_kernel``: a CUDA tensor
-    always scores through the qgemm CUDA kernel, a CPU tensor through the
-    plain int64 product. The reference's flag chose between two
-    bit-identical implementations; on the card there is only one, and the
-    flag stays on the plans only so that they compare equal."""
+    always scores through the qgemm CUDA kernel (``_wide_dot_kernel``:
+    every storage type and depth), a CPU tensor through the plain int64
+    product. The reference's flag chose between two bit-identical
+    implementations; on the card there is only one, and the flag stays on
+    the plans only so that they compare equal."""
     if _kernel_route(queries_raw, use_kernel):
-        wide_dot = qgemm_ops.qgemm(queries_raw, db_raw)
+        wide_dot = _wide_dot_kernel(queries_raw, db_raw)
     else:
         wide_dot = torch.matmul(queries_raw.to(torch.int64),
                                 db_raw.to(torch.int64).T)

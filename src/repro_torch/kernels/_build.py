@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (``<name>_launch``), loaded with ``ctypes``. The
 libraries are built at first use, from the sources in this checkout, into
 ``kernels/_build/`` (listed in ``.gitignore``); a library's file name
-carries a digest of its source and flags, so an edited source rebuilds.
+carries a digest of its source, of every shared header ``csrc/*.cuh`` and
+of the flags, so an edited source or header rebuilds.
 ``build_all`` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import: CPU-only installs import every module, and a
@@ -36,7 +37,7 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 _SIGNATURES = {
     "qboundary": [_P, _P, _I64, _I64, _F32, _F32, _F32, _I64, _I64, _I32,
                   _I32, _P],
-    "qgemm": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "qgemm": [_P, _P, _P, _I64, _I64, _I64, _I32, _P],
     "qtopk": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P],
     "qcoarse": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
@@ -53,8 +54,10 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def _lib_path(name: str) -> pathlib.Path:
+def lib_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.name.encode() + header.read_bytes()
     tag = hashlib.sha256(src + " ".join(ARCH_FLAGS + FLAGS).encode()
                          ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
@@ -66,7 +69,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _lib_path(name)
+        out = lib_path(name)
         if out.exists() or name in _LIBS:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -86,11 +89,11 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return seconds
 
 
-def launcher(name: str):
-    """The ``<name>_launch`` C function, building the library on first use."""
+def library(name: str) -> ctypes.CDLL:
+    """The kernel's loaded library, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = _lib_path(name)
+        path = lib_path(name)
         if not path.exists():
             build_all([name])
         lib = ctypes.CDLL(str(path))
@@ -98,7 +101,20 @@ def launcher(name: str):
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
-    return getattr(lib, f"{name}_launch")
+    return lib
+
+
+def launcher(name: str):
+    """The ``<name>_launch`` C function, building the library on first use."""
+    return getattr(library(name), f"{name}_launch")
+
+
+def helper(name: str, fn_name: str, argtypes, restype=ctypes.c_int):
+    """Another exported C function of a kernel's library (a path or a
+    scratch size), typed."""
+    fn = getattr(library(name), fn_name)
+    fn.argtypes, fn.restype = argtypes, restype
+    return fn
 
 
 def check(name: str, err: int) -> None:

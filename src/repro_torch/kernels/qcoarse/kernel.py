@@ -13,30 +13,51 @@ What bounds it on the card: bytes, by the count of the work. At the main
 path's shape (64 queries x 131072 code rows x d = 2304) the function must
 read 302.0 MB of int8 codes and 0.6 MB of weights and write 67.1 MB of
 int64 scores: 369.7 MB, 0.110 ms at 3.35 TB/s, against 0.020 ms for its
-1.9e10 multiply-adds at the int8 tensor-core rate.
+1.9e10 multiply-adds at the int8 tensor-core rate (0.078 ms for the four
+limb products this design issues for them).
 
-What the design does about it: the codes stream as int8, read four at a
-time as 32-bit words (a quarter of the int32 arena's bytes, the point of
-the tier), each code word read once per block of 64 queries and used by
-64 queries from shared memory. The weights are split into limbs once, by
-a small first kernel, so that the main loop is all ``dp4a``: four
-multiply-adds per instruction, int32 planes exact by the reference's range
-analysis (255 * 127 * 8192 < 2^31). It runs on the CUDA cores, so the
-``dp4a`` issue rate, not the bytes, sets its time today. The int8
-tensor-core path (``mma.sync`` / ``wgmma`` with u8 x s8 operands) and TMA
-loads are later work.
+What the design does about it (changed from the first port's CUDA-core
+kernel, which issued 1.9e10 ``dp4a`` and ran at 17x its bound): the scan
+runs on the int8 tensor cores (``wgmma`` m64n64k32, s8 x s8 for the top
+limb and u8 x s8 for the three low bytes, s32 accumulation). The codes
+are the B operand straight from device memory: 128-code stages of 128
+rows stream through a 4-deep cp.async ring in shared memory, each code
+byte read once per block of 64 weight rows, at a quarter of the int32
+arena's bytes, the point of the tier. The weights are split once per call
+by a small first kernel into byte planes already tiled in the tensor
+cores' layout, so each stage's A operand is one contiguous 32 KB copy.
+Four s32 planes per output (128 registers a thread in each of the two
+warpgroups) combine into int64 at the store.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
 
+PATHS = {0: "plain loads", 1: "cp.async"}
+
+
+def path(codes: torch.Tensor) -> str:
+    """The load path the kernel takes for these codes (``PATHS``)."""
+    fn = _build.helper("qcoarse", "qcoarse_path",
+                       [ctypes.c_void_p, ctypes.c_int64])
+    return PATHS[fn(codes.data_ptr(), codes.shape[1])]
+
+
+def scratch_bytes(nq: int, d: int) -> int:
+    """Bytes of the weight-plane scratch one launch needs."""
+    fn = _build.helper("qcoarse", "qcoarse_scratch_bytes",
+                       [ctypes.c_int64, ctypes.c_int64], ctypes.c_int64)
+    return fn(nq, d)
+
 
 def launch(weights: torch.Tensor, codes: torch.Tensor, limbs: torch.Tensor,
            out: torch.Tensor) -> None:
-    """weights int32 [nq, d], codes int8 [nn, d], limbs int32 scratch
-    [nq, ceil(d / 4), 4], out int64 [nq, nn]."""
+    """weights int32 [nq, d], codes int8 [nn, d], limbs uint8 scratch of
+    ``scratch_bytes(nq, d)``, out int64 [nq, nn]."""
     nq, d = weights.shape
     nn = codes.shape[0]
     fn = _build.launcher("qcoarse")

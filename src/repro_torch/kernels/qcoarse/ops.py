@@ -52,7 +52,7 @@ def qcoarse(weights: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     if not (weights.is_contiguous() and codes.is_contiguous()):
         raise ValueError("qcoarse needs contiguous inputs")
     nq, d = weights.shape
-    limbs = torch.empty((nq, -(-d // 4), 4), dtype=torch.int32,
+    limbs = torch.empty((_kernel.scratch_bytes(nq, d),), dtype=torch.uint8,
                         device=weights.device)
     out = torch.empty((nq, codes.shape[0]), dtype=torch.int64,
                       device=weights.device)

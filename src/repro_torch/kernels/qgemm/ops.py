@@ -2,6 +2,11 @@
 
 ``qgemm`` returns the exact int64 dot scores. On a CUDA tensor it launches
 the CUDA kernel (or raises); on a CPU tensor it computes the plain version.
+
+Dispatch on the card is by element type, inside one kernel library:
+int16 and int32 rows run on the int8 tensor cores (limb split, exact for
+every value), int64 rows (Q32.32) on the CUDA cores with wrapping 64-bit
+multiply-adds. Both equal the reference's plain int64 matmul bit for bit.
 """
 from __future__ import annotations
 
@@ -11,8 +16,11 @@ from repro_torch.kernels.qgemm import kernel as _kernel
 from repro_torch.kernels.qgemm import ref
 
 # the reference's exactness contract: |raw| <= RAW_BOUND and dim <= MAX_DIM
+# (the card's kernel is exact for every int16/int32/int64 value; MAX_DIM
+# bounds its s32 limb groups, and callers split deeper products)
 RAW_BOUND = 1 << 16
 MAX_DIM = 1 << 13
+DTYPES = (torch.int16, torch.int32, torch.int64)
 
 LAUNCHES = 0  # kernel launches since the last reset
 
@@ -40,8 +48,9 @@ def qgemm(queries: torch.Tensor, database: torch.Tensor) -> torch.Tensor:
             or queries.shape[1] != database.shape[1]:
         raise ValueError(f"qgemm takes [nq, d] x [nn, d], got "
                          f"{tuple(queries.shape)} x {tuple(database.shape)}")
-    if queries.dtype != torch.int32 or database.dtype != torch.int32:
-        raise TypeError(f"qgemm takes int32, got {queries.dtype}, {database.dtype}")
+    if queries.dtype not in DTYPES or database.dtype != queries.dtype:
+        raise TypeError(f"qgemm takes two int16, int32 or int64 operands, "
+                        f"got {queries.dtype}, {database.dtype}")
     if database.device != queries.device:
         raise ValueError("qgemm inputs must be on one device")
     if not (queries.is_contiguous() and database.is_contiguous()):
