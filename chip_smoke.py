@@ -11,13 +11,18 @@ Phases (any failure raises and exits non-zero):
    plain PyTorch version on the card, bitwise, at the main path's shapes
    and at edge shapes (qgemm also on int16 and int64 rows and on values
    beyond +-2^23 in some tiles, against the CPU's int64 product; each
-   qgemm / qcoarse case prints the load path it took); then timed with
-   CUDA events beside its plain version, the one PyTorch call that
-   computes the same function where there is one, and its bound (qtopk
-   also at k = ef_coarse = 256, qgemm also at the coarse re-rank's
-   shape); ``exact_search`` over every storage type the contracts give
-   (Q8.8, Q2.13, Q16.16 with and without unit norm, Q32.32, d = 8200)
-   equals the CPU's. The build step prints ptxas registers and spills per
+   qgemm / qcoarse case prints the load path it took; qtopk also at
+   k > n >= 1024 (the reference's pad columns), at k = 4095 / 4096 past
+   one tile, and at [64, 131072] on all-equal, mostly-INF, extreme and
+   40-shared-top-bit rows and at k = 8192); then timed with CUDA events
+   beside its plain version, the one PyTorch call that computes the same
+   function where there is one, and its bound (qtopk at k = 10, 256 and
+   8192, each split into the selection kernels and the merge, with
+   ``torch.topk`` as a values-only yardstick; qgemm also at the coarse
+   re-rank's shape); ``exact_search`` over every storage type the
+   contracts give (Q8.8, Q2.13, Q16.16 with and without unit norm,
+   Q32.32, d = 8200) equals the CPU's, and at k > capacity (1030 / 1040,
+   2100 / 3000) it returns the CPU default route's shape and values. The build step prints ptxas registers and spills per
    kernel and the integer tensor-core (IMMA/IGMMA) and IDP4A instruction
    counts of each library (``cuobjdump -sass``);
 3. engine — the flat engine at full width (d = 2304, gemma2-2b's d_model;
@@ -243,42 +248,140 @@ def check_qgemm(torch, dev, rng):
 
 
 def check_qtopk(torch, dev, rng):
-    from repro_torch.kernels.qtopk import ops, ref
+    from repro_torch.core.search import INF
+    from repro_torch.kernels.qtopk import kernel, ops, ref
     acc = dict(max_abs_err=0, mismatches=0)
-    cases = [(1, 4, 1), (3, 17, 5), (6, 200, 16), (2, 127, 16), (5, 128, 9),
-             (4, 1000, 12), (4, 1030, 10), (4, 5000, 16), (2, 1030, 40),
-             (3, 50, 80), (QUERIES, CAPACITY, K)]
-    for nq, m, kk in cases:
+    cases = {}
+
+    def run(name, s, keys, kk):
+        """ops.qtopk on the card against the reference kernel's blocked
+        selection, run by its plain version on the same card."""
+        case = dict(max_abs_err=0, mismatches=0)
+        compare(torch, ops.qtopk(s, keys, kk),
+                ref.qtopk_blocked(s, keys, kk, ops.block_n(s.shape[1])), case)
+        cases[name] = case
+        acc["max_abs_err"] = max(acc["max_abs_err"], case["max_abs_err"])
+        acc["mismatches"] += case["mismatches"]
+
+    def perm(m):
+        return torch.from_numpy(rng.permutation(m).astype(np.int32)).to(dev)
+
+    # k > n >= 1024 with n % 1024 != 0: the reference's pad columns
+    for nq, m, kk in [(1, 4, 1), (3, 17, 5), (6, 200, 16), (2, 127, 16),
+                      (5, 128, 9), (4, 1000, 12), (4, 1030, 10), (4, 5000, 16),
+                      (2, 1030, 40), (3, 50, 80), (2, 1030, 1040),
+                      (2, 2100, 3000), (2, 9000, 4095), (2, 9000, 4096),
+                      (QUERIES, CAPACITY, K)]:
         s = torch.from_numpy(rng.integers(-2**45, 2**45, (nq, m))).to(dev)
         s[:, ::5] = 0  # ties
-        keys = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(dev)
-        compare(torch, ops.qtopk(s, keys, kk),
-                ref.qtopk_blocked(s, keys, kk, ops.block_n(m)), acc)
+        run(f"random [{nq}, {m}] k={kk}", s, perm(m), kk)
     ties = torch.zeros((1, 64), dtype=torch.int64, device=dev)
     rev = torch.arange(63, -1, -1, dtype=torch.int32, device=dev)
     if ops.qtopk(ties, rev, 5)[1][0].tolist() != [0, 1, 2, 3, 4]:
         raise AssertionError("qtopk all-ties order wrong")
-    nq, n, k = QUERIES, CAPACITY, K
+    nq, n = QUERIES, CAPACITY
+    keys = perm(n)
+    # the main path's shape with data that stresses the digits: all
+    # scores equal (the keys decide), every score INF but 100 per row,
+    # the extremes, and scores that share their top 40 bits
+    run(f"all equal [{nq}, {n}] k={EF_COARSE}",
+        torch.zeros((nq, n), dtype=torch.int64, device=dev), keys, EF_COARSE)
+    s = torch.full((nq, n), INF, dtype=torch.int64, device=dev)
+    live = torch.from_numpy(np.stack([rng.choice(n, 100, replace=False)
+                                      for _ in range(nq)])).to(dev)
+    s.scatter_(1, live, torch.from_numpy(
+        rng.integers(0, 2**40, (nq, 100))).to(dev))
+    run(f"INF but 100 per row [{nq}, {n}] k={EF_COARSE}", s, keys, EF_COARSE)
+    extremes = np.array([-2**63 + 1, -2**63 + 2, -1, 0, 1, 2**62, 2**63 - 2])
+    s = torch.from_numpy(rng.choice(extremes, (nq, n))).to(dev)
+    run(f"extremes [{nq}, {n}] k={K}", s, keys, K)
+    run(f"extremes [{nq}, {n}] k={EF_COARSE}", s, keys, EF_COARSE)
+    s = (torch.from_numpy(rng.integers(0, 2**24, (nq, n))).to(dev)
+         + (0x5A5A5A5A5A << 24))
+    run(f"top 40 bits shared [{nq}, {n}] k={EF_COARSE}", s, keys, EF_COARSE)
     s = torch.from_numpy(rng.integers(-2**45, 2**45, (nq, n))).to(dev)
-    keys = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
-    ms = cuda_ms(torch, lambda: ops.qtopk(s, keys, k), 20)
-    plain = cuda_ms(torch, lambda: ref.qtopk_blocked(s, keys, k,
+    run(f"coverage [{nq}, {n}] k={EF_COVER}", s, keys, EF_COVER)
+
+    # times at k = 10 (exact route), 256 (coarse candidates) and 8192
+    # (coverage): the whole call, the selection kernels alone, the merge
+    # alone; torch.topk (values only, another tie order) as a yardstick
+    timing = {}
+    for kk, iters in ((K, 20), (EF_COARSE, 20), (EF_COVER, 5)):
+        sel_s, sel_k, ordered = kernel.select(s, keys, kk)
+        timing[kk] = dict(
+            call=cuda_ms(torch, lambda: ops.qtopk(s, keys, kk), iters),
+            kernels=cuda_ms(torch, lambda: kernel.select(s, keys, kk), iters),
+            merge=0.0 if ordered else cuda_ms(
+                torch, lambda: ref.merge(sel_s, sel_k, min(kk, n)), iters),
+            torch_topk=cuda_ms(torch, lambda: torch.topk(
+                s, kk, dim=1, largest=False), iters),
+            bound=bound_ms(nq * n * 8 + n * 4 + nq * kk * 12, 2.0 * nq * n,
+                           INT8_TC_OPS_PER_S)[0])
+    plain = cuda_ms(torch, lambda: ref.qtopk_blocked(s, keys, K,
                                                      ops.block_n(n)), 3)
-    b, by = bound_ms(nq * n * 8 + n * 4 + nq * k * 12, 2.0 * nq * n,
-                     INT8_TC_OPS_PER_S)
-    # the coarse route's candidate selection: k = ef_coarse
-    ke = EF_COARSE
-    compare(torch, ops.qtopk(s, keys, ke),
-            ref.qtopk_blocked(s, keys, ke, ops.block_n(n)), acc)
-    ms_ef = cuda_ms(torch, lambda: ops.qtopk(s, keys, ke), 10)
-    plain_ef = cuda_ms(torch, lambda: ref.qtopk_blocked(s, keys, ke,
+    plain_ef = cuda_ms(torch, lambda: ref.qtopk_blocked(s, keys, EF_COARSE,
                                                         ops.block_n(n)), 2)
-    b_ef, _ = bound_ms(nq * n * 8 + n * 4 + nq * ke * 12, 2.0 * nq * n,
-                       INT8_TC_OPS_PER_S)
-    return dict(acc, ms=ms, plain_ms=plain, library_ms=None,
-                bound_ms=b, bound_by=by, shape=f"[{nq}, {n}] i64, k={k}",
-                ms_at_ef_coarse=ms_ef, plain_ms_at_ef_coarse=plain_ef,
-                bound_ms_at_ef_coarse=b_ef)
+    b, by = bound_ms(nq * n * 8 + n * 4 + nq * K * 12, 2.0 * nq * n,
+                     INT8_TC_OPS_PER_S)
+    return dict(acc, ms=timing[K]["call"], plain_ms=plain, library_ms=None,
+                bound_ms=b, bound_by=by, shape=f"[{nq}, {n}] i64, k={K}",
+                ms_at_ef_coarse=timing[EF_COARSE]["call"],
+                plain_ms_at_ef_coarse=plain_ef,
+                bound_ms_at_ef_coarse=timing[EF_COARSE]["bound"],
+                timing=timing, cases=cases)
+
+
+def report_qtopk(r) -> None:
+    """qtopk's cases (each against the blocked plain version) and its
+    times by k: whole call = selection kernels + merge (+ pad columns)."""
+    for name, case in r["cases"].items():
+        log(f"[kernel] qtopk {name}: max_abs_err {case['max_abs_err']}, "
+            f"mismatches {case['mismatches']}")
+    for kk, tm in r["timing"].items():
+        log(f"[kernel] qtopk [{QUERIES}, {CAPACITY}] k={kk}: call "
+            f"{tm['call']:.4f} ms = kernels {tm['kernels']:.4f} + merge "
+            f"{tm['merge']:.4f} (0: sorted in the kernel) (bound "
+            f"{tm['bound']:.4f} ms)")
+    for kk, tm in r["timing"].items():
+        log(f"[kernel] yardstick, not the same function (values only, "
+            f"another tie order): torch.topk(largest=False) k={kk} "
+            f"{tm['torch_topk']:.4f} ms")
+    log(f"[kernel] qtopk plain (blocked) version: {r['plain_ms']:.4f} ms at "
+        f"k={K}, {r['plain_ms_at_ef_coarse']:.4f} ms at k={EF_COARSE}")
+
+
+def check_k_beyond_capacity(torch, dev) -> None:
+    """``exact_search`` with k > capacity on the card returns what the
+    CPU's default route (the full sort) returns: min(k, capacity) columns,
+    the same values, both metrics."""
+    import dataclasses
+    from repro_torch.core import search
+    from repro_torch.core.contracts import get_contract
+    from repro_torch.core.state import init_state
+    cases = load_test_module("_torch_search_cases")
+    for cap, kk in ((1030, 1040), (2100, 3000)):
+        c = cases.make_case("Q16.16-unit", cap, DIM, QUERIES, seed=2)
+        states = {}
+        for where in ("cpu", dev):
+            states[str(where)] = dataclasses.replace(
+                init_state(cap, DIM, contract=get_contract(c["contract"]),
+                           device=where),
+                vectors=torch.from_numpy(c["vectors"]).to(where),
+                ids=torch.from_numpy(c["ids"]).to(where),
+                valid=torch.from_numpy(c["valid"]).to(where))
+        q = torch.from_numpy(c["queries"])
+        for metric in (search.METRIC_L2, search.METRIC_DOT):
+            want = search.exact_search(states["cpu"], q, kk, metric=metric)
+            got = search.exact_search(states[str(dev)], q.to(dev), kk,
+                                      metric=metric)
+            acc = dict(max_abs_err=0, mismatches=0)
+            compare(torch, got, want, acc)  # raises on another shape
+            if acc["mismatches"]:
+                raise AssertionError(f"exact_search k={kk} > capacity={cap} "
+                                     f"{metric}: card and CPU differ: {acc}")
+        log(f"[search] exact_search k={kk} > capacity={cap} on the card: "
+            f"shape {tuple(got[0].shape)} and values equal the CPU default "
+            f"route's (l2 and dot)")
 
 
 def check_qcoarse(torch, dev, rng):
@@ -761,11 +864,8 @@ def main() -> int:
     log(f"[kernel] qgemm at the coarse re-rank's shape ([{QUERIES}, {DIM}] x "
         f"[{QUERIES * EF_COARSE}, {DIM}] gathered rows): {r['ms_rerank']:.4f} "
         f"ms (bound {r['bound_ms_rerank']:.4f} ms)")
-    r = results["qtopk"]
-    log(f"[kernel] qtopk at k={EF_COARSE} (the coarse route's candidates): "
-        f"{r['ms_at_ef_coarse']:.4f} ms (plain "
-        f"{r['plain_ms_at_ef_coarse']:.4f} ms, bound "
-        f"{r['bound_ms_at_ef_coarse']:.4f} ms)")
+    report_qtopk(results["qtopk"])
+    check_k_beyond_capacity(torch, dev)
 
     counts, eng = run_engine(torch, dev, args.docs, args.seed)
 
@@ -784,7 +884,7 @@ def main() -> int:
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
                  **{key: v for key, v in r.items()
-                    if key.endswith("_at_ef_coarse")})
+                    if key.endswith("_at_ef_coarse") or key == "timing"})
             for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kern}))

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Build the tensor-core kernels (qgemm, qcoarse), check them against
-their plain versions and time them at the main path's shapes, on one
-NVIDIA GPU.
+"""Build kernels, check them against their plain versions and time them
+at the main path's shapes, on one NVIDIA GPU.
 
-    python3 scripts/probe_qcoarse.py [qgemm] [qcoarse]
+    python3 scripts/probe_qcoarse.py [qgemm] [qcoarse] [qtopk]
 
 The short first call after an edit of ``csrc/qgemm.cu``,
-``csrc/qcoarse.cu`` or ``csrc/imma.cuh``: it prints the card, the
-compiler's register and spill report per kernel, the SASS counts of
-integer tensor-core and ``dp4a`` instructions, and the result of
-``chip_smoke.check_qgemm`` / ``check_qcoarse`` (bitwise checks at odd,
-prime, padded, unaligned, wide-valued and extreme shapes, each with the
-load path it took, then the kernel's, the plain version's and the float64
-``torch.matmul``'s time at the main path's shape). Exits non-zero on any
-mismatch. ``chip_smoke.py`` runs the same checks as part of the port's
-full check.
+``csrc/qcoarse.cu``, ``csrc/imma.cuh`` or ``csrc/qtopk.cu`` (no argument:
+qgemm and qcoarse): it prints the card, the compiler's register and spill
+report per kernel, the SASS counts of integer tensor-core and ``dp4a``
+instructions, and the result of ``chip_smoke.check_qgemm`` /
+``check_qcoarse`` (bitwise checks at odd, prime, padded, unaligned,
+wide-valued and extreme shapes, each with the load path it took, then the
+kernel's, the plain version's and the float64 ``torch.matmul``'s time at
+the main path's shape) or ``check_qtopk`` (every case against the blocked
+plain version, then the call, kernels-alone and merge times at k = 10,
+256 and 8192), and for qtopk each phase's launch alone at [64, 131072]
+on rows of several kinds. Exits non-zero on any mismatch.
+``chip_smoke.py`` runs the same checks as part of the port's full check.
 """
 import json
 import pathlib
@@ -28,11 +30,52 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (puts the repository's src/ on sys.path)
 
-CHECKS = {"qgemm": chip_smoke.check_qgemm, "qcoarse": chip_smoke.check_qcoarse}
+CHECKS = {"qgemm": chip_smoke.check_qgemm, "qcoarse": chip_smoke.check_qcoarse,
+          "qtopk": chip_smoke.check_qtopk}
+
+
+def qtopk_phases(torch, dev) -> None:
+    """CUDA-event times of qtopk's two launches, each alone, at the main
+    path's shape [64, 131072] on rows of several kinds: phase 1 (a
+    256-thread block per 4096-column tile) and phase 2 (a 1024-thread
+    block per row over the tiles' candidates, sorting them)."""
+    from repro_torch.kernels.qtopk import kernel, ref
+    rng = np.random.default_rng(1)
+    nq, n = chip_smoke.QUERIES, chip_smoke.CAPACITY
+    keys = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+    inf = torch.full((nq, n), 1 << 62, dtype=torch.int64)
+    live = torch.from_numpy(np.stack([rng.choice(n, 100, replace=False)
+                                      for _ in range(nq)]))
+    rows = {
+        "uniform in [-2^45, 2^45)": rng.integers(-2**45, 2**45, (nq, n)),
+        "uniform in [0, 2^35)": rng.integers(0, 2**35, (nq, n)),
+        "8192 live in [0, 2^35), then INF": np.concatenate(
+            [rng.integers(0, 2**35, (nq, 8192)),
+             np.full((nq, n - 8192), 1 << 62)], axis=1),
+        "all equal": np.zeros((nq, n), np.int64),
+        "INF but 100 per row": inf.scatter_(
+            1, live, torch.from_numpy(rng.integers(0, 2**40, (nq, 100)))
+        ).numpy(),
+    }
+    for name, s in rows.items():
+        s = torch.from_numpy(np.asarray(s, dtype=np.int64)).to(dev)
+        for k in (chip_smoke.K, chip_smoke.EF_COARSE):
+            _, c = ref.select_plan(n, k, kernel.TILE)
+            cand = (torch.empty((nq, c), dtype=torch.int64, device=dev),
+                    torch.empty((nq, c), dtype=torch.int32, device=dev))
+            out = (torch.empty((nq, k), dtype=torch.int64, device=dev),
+                   torch.empty((nq, k), dtype=torch.int32, device=dev))
+            p1 = chip_smoke.cuda_ms(torch, lambda: kernel._launch(
+                s, keys, n, 0, nq, n, kernel.TILE, k, *cand, c, k, True,
+                False), 20)
+            p2 = chip_smoke.cuda_ms(torch, lambda: kernel._launch(
+                *cand, c, c, nq, c, c, k, *out, k, 0, False, True), 20)
+            print(f"qtopk phases [{nq}, {n}] k={k}, {name}: phase 1 "
+                  f"{p1:.4f} ms, phase 2 {p2:.4f} ms")
 
 
 def main() -> int:
-    names = sys.argv[1:] or list(CHECKS)
+    names = sys.argv[1:] or ["qgemm", "qcoarse"]
     import torch
     if not torch.cuda.is_available():
         print("probe_qcoarse: no CUDA device", file=sys.stderr)
@@ -49,6 +92,10 @@ def main() -> int:
     bad = 0
     for name in names:
         r = CHECKS[name](torch, torch.device("cuda"), np.random.default_rng(0))
+        if name == "qtopk":
+            chip_smoke.report_qtopk(r)
+            qtopk_phases(torch, torch.device("cuda"))
+            r = {key: v for key, v in r.items() if key != "cases"}
         print(f"{name} {json.dumps(r, indent=1)}")
         bad |= bool(r["mismatches"] or r["max_abs_err"])
     return 1 if bad else 0

@@ -89,18 +89,21 @@ def topk_by_score(scores: torch.Tensor, ids: torch.Tensor, k: int
 
 def _topk_by_score_kernel(scores: torch.Tensor, ids: torch.Tensor, k: int
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """qtopk-backed top-k, bit-identical to :func:`topk_by_score`.
+    """qtopk-backed top-k, bit-identical to :func:`topk_by_score`,
+    min(k, n) columns wide as it is.
 
     The kernel tie-breaks on int32 keys; ids are int64, so each id is
     replaced by its rank among the sorted ids (strictly monotone for the
     unique live ids; dead rows share id 2^62 and score INF, and every INF
-    result is normalized to (-1, INF) by the caller)."""
+    result is normalized to (-1, INF) by the caller). qtopk is asked for
+    min(k, n): at k > n its own width (the reference kernel's) can exceed
+    n with pad columns, where the full sort gives n."""
     n = ids.shape[0]
     order = torch.argsort(ids, stable=True)
     ranks = torch.empty((n,), dtype=torch.int32, device=ids.device)
     ranks[order] = torch.arange(n, dtype=torch.int32, device=ids.device)
     sorted_ids = ids[order]
-    s, r = qtopk_ops.qtopk(scores.contiguous(), ranks, k)
+    s, r = qtopk_ops.qtopk(scores.contiguous(), ranks, min(k, n))
     return s, sorted_ids[torch.clamp(r, 0, n - 1).to(torch.int64)]
 
 

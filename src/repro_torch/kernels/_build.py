@@ -38,7 +38,8 @@ _SIGNATURES = {
     "qboundary": [_P, _P, _I64, _I64, _F32, _F32, _F32, _I64, _I64, _I32,
                   _I32, _P],
     "qgemm": [_P, _P, _P, _I64, _I64, _I64, _I32, _P],
-    "qtopk": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P],
+    "qtopk": [_P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _P, _P, _I64, _I64,
+              _I32, _I32, _P],
     "qcoarse": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
 

@@ -1,9 +1,11 @@
-"""Wrapper of the qtopk kernel: blocking, dispatch, candidate merge.
+"""Wrapper of the qtopk kernel: dispatch, candidate merge, pad columns.
 
-On a CUDA tensor the per-block selection is the CUDA kernel (or raises);
-on a CPU tensor it is the plain blocked version. Either way the
-``n_blocks * kk`` candidates then merge in one two-key sort, as the
-reference merges outside its Pallas call.
+On a CUDA tensor the selection is the CUDA kernel (or raises): it leaves
+the min(k, n) smallest pairs per row, sorted by the kernel itself up to
+``kernel.SORT_MAX`` of them, else by one two-key sort after it, as the
+reference merges outside its Pallas call. On a CPU tensor the whole
+function is the plain blocked version. Both return the reference's width
+(``ref.qtopk_width``), pad columns included.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 from repro_torch.kernels.qtopk import kernel as _kernel
 from repro_torch.kernels.qtopk import ref
 
-LAUNCHES = 0  # kernel launches since the last reset
+LAUNCHES = 0  # calls that launched the kernels (one or two launches each)
 
 
 def block_n(n: int) -> int:
@@ -27,8 +29,10 @@ def qtopk(scores: torch.Tensor, keys: torch.Tensor, k: int
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Deterministic k smallest (score, key) per row.
 
-    scores [nq, n] int64; keys [n] int32 tie keys (unique).
-    Returns (scores [nq, min(k, ...)] int64, keys int32), sorted."""
+    scores [nq, n] int64, each < INT64_MAX; keys [n] int32 tie keys
+    (unique). Returns (scores [nq, w] int64, keys int32), sorted, with
+    w = ``ref.qtopk_width(n, k, block_n(n))``: the k smallest pairs where
+    k <= n; else all n pairs, then w - n pad columns where w > n."""
     global LAUNCHES
     if k < 1:
         raise ValueError(f"qtopk needs k >= 1, got {k}")
@@ -37,7 +41,6 @@ def qtopk(scores: torch.Tensor, keys: torch.Tensor, k: int
                          f"{tuple(scores.shape)} and {tuple(keys.shape)}")
     nq, n = scores.shape
     bn = block_n(n)
-    kk = min(k, bn)
     if scores.device.type != "cuda":
         return ref.qtopk_blocked(scores, keys, k, bn)
     if scores.dtype != torch.int64 or keys.dtype != torch.int32:
@@ -47,9 +50,9 @@ def qtopk(scores: torch.Tensor, keys: torch.Tensor, k: int
         raise ValueError("qtopk inputs must be on one device")
     if not (scores.is_contiguous() and keys.is_contiguous()):
         raise ValueError("qtopk needs contiguous inputs")
-    nb = -(-n // bn) if n else 0
-    cand_s = torch.empty((nq, nb * kk), dtype=torch.int64, device=scores.device)
-    cand_k = torch.empty((nq, nb * kk), dtype=torch.int32, device=scores.device)
-    _kernel.launch(scores, keys, cand_s, cand_k, bn, kk)
-    LAUNCHES += 1
-    return ref.merge(cand_s, cand_k, k)
+    s, i, ordered = _kernel.select(scores, keys, k)
+    if nq and n:  # an empty input launches nothing
+        LAUNCHES += 1
+    if not ordered:
+        s, i = ref.merge(s, i, min(k, n))
+    return ref.pad_columns(s, i, keys, k, bn)

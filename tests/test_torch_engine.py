@@ -177,3 +177,38 @@ def test_engine_coarse_route_matches_through_build_refresh_and_drop(
     check("relinked")             # re-link leaves the table alone
     assert t._code_table is table
     assert t.replay_log_fresh() == t.state_hash()
+
+
+@pytest.fixture(scope="module")
+def wide_pair(pair):
+    """A JAX / port engine pair at capacity 1030 holding a few dozen
+    documents: a read with k = 1040 > capacity takes the exact route."""
+    j0, _, _, _ = pair
+    sc = dict(capacity=1030, retrieve_k=3, ef=16)
+    j = jengine.MemoryAugmentedEngine(j0.cfg, j0.params, jengine.ServeConfig(
+        max_new_tokens=4, s_cache=96, context_tokens=8, **sc))
+    t = tengine.MemoryAugmentedEngine(j0.cfg.d_model,
+                                      tengine.ServeConfig(**sc), device="cpu")
+    rng = np.random.default_rng(4)
+    docs = rng.integers(0, j0.cfg.vocab_size, (30, 16), dtype=np.int32)
+    assert j.insert_documents(docs) == t.insert_documents(_embed(j, docs))
+    prompts = rng.integers(0, j0.cfg.vocab_size, (4, 10), dtype=np.int32)
+    return j, t, prompts
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_engine_retrieve_k_beyond_capacity_matches(wide_pair, use_kernel):
+    """The reference engine (its default route) answers k = 1040 at
+    capacity 1030 with 1030 columns; so must the port's, on the kernel
+    route (qtopk's plain version here, the card's kernels on a GPU)."""
+    j, t, prompts = wide_pair
+    q = _embed(j, prompts)
+    t.sc.use_kernel = use_kernel
+    try:
+        jid, jsc = j.retrieve(prompts, 1040)
+        tid, tsc = t.retrieve(q, 1040)
+        assert t.last_plan.route == "exact" and jid.shape == (4, 1030)
+        assert np.array_equal(tid, jid) and np.array_equal(tsc, jsc)
+        assert t.retrieval_hash(q, 1040) == j.retrieval_hash(prompts, 1040)
+    finally:
+        t.sc.use_kernel = False

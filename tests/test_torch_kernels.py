@@ -126,7 +126,9 @@ def test_kernels_match_plain_versions_on_card():
         qt, dbt = torch.from_numpy(q).to(dev), torch.from_numpy(db).to(dev)
         assert torch.equal(tqgemm.qgemm(qt, dbt).cpu(),
                            tqgemm_ref.qgemm_ref(qt.cpu(), dbt.cpu()))
-    for nq, n, k in QTOPK_CASES + [(64, 131072, 10)]:
+    for nq, n, k in QTOPK_CASES + [(64, 131072, 10), (64, 131072, 256),
+                                   (2, 1030, 1040), (2, 9000, 4096),
+                                   (2, 9000, 4095)]:
         rng = np.random.default_rng(n)
         s = torch.from_numpy(rng.integers(-2**45, 2**45, size=(nq, n)))
         keys = torch.from_numpy(rng.permutation(n).astype(np.int32))

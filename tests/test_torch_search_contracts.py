@@ -28,8 +28,8 @@ from _torch_search_cases import CASES, make_case  # noqa: E402
 CAP, DIM, NQ, K = 96, 40, 5, 7
 
 
-def _states(case, device="cpu"):
-    c = make_case(case, CAP, DIM, NQ)
+def _states(case, device="cpu", cap=CAP):
+    c = make_case(case, cap, DIM, NQ)
     cap, dim = c["vectors"].shape
     jstate = dataclasses.replace(
         j_init(cap, dim, contract=j_contract(c["contract"])),
@@ -51,6 +51,24 @@ def test_exact_search_matches_reference(case, metric, use_kernel):
     want = js.exact_search(jstate, jnp.asarray(c["queries"]), K, metric=metric)
     got = ts.exact_search(tstate, torch.from_numpy(c["queries"]), K,
                           metric=metric, use_kernel=use_kernel)
+    assert np.array_equal(np_(got[0]), np.asarray(want[0]))
+    assert np.array_equal(np_(got[1]), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("metric", [ts.METRIC_L2, ts.METRIC_DOT])
+@pytest.mark.parametrize("cap,k", [(1030, 1040), (2100, 3000)])
+def test_exact_search_k_beyond_capacity_matches_reference(cap, k, metric,
+                                                          use_kernel):
+    """k > capacity (the planner sends it to the exact route): the
+    reference's default route returns min(k, capacity) columns, and so
+    must the port's, on the kernel route too. qtopk's own width (the
+    reference kernel's) exceeds n at these shapes, with pad columns."""
+    c, jstate, tstate = _states("Q16.16-unit", cap=cap)
+    want = js.exact_search(jstate, jnp.asarray(c["queries"]), k, metric=metric)
+    got = ts.exact_search(tstate, torch.from_numpy(c["queries"]), k,
+                          metric=metric, use_kernel=use_kernel)
+    assert np.asarray(want[0]).shape == (NQ, cap)
     assert np.array_equal(np_(got[0]), np.asarray(want[0]))
     assert np.array_equal(np_(got[1]), np.asarray(want[1]))
 
