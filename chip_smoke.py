@@ -9,7 +9,11 @@ Phases (any failure raises and exits non-zero):
    (one ``nvcc`` per source, all at once);
 2. kernels — each kernel (qboundary, qgemm, qtopk, qcoarse) against its
    plain PyTorch version on the card, bitwise, at the main path's shapes
-   and at edge shapes (qgemm also on int16 and int64 rows and on values
+   and at edge shapes (qboundary also at odd widths, at d = 40000 on its
+   looped form, one float past 16-byte alignment and on rows whose sum of
+   squares wraps, each case with the path it took, and timed at both of
+   its main-path shapes as a whole call and as the kernel alone in a CUDA
+   graph; qgemm also on int16 and int64 rows and on values
    beyond +-2^23 in some tiles, against the CPU's int64 product; each
    qgemm / qcoarse case prints the load path it took; qtopk also at
    k > n >= 1024 (the reference's pad columns), at k = 4095 / 4096 past
@@ -36,7 +40,9 @@ Phases (any failure raises and exits non-zero):
    rows) must equal the exact route's ``retrieval_hash``, and one more
    insert batch refreshes the table before a last coarse read. Launch
    counts are zeroed just before and read just after. One warm exact and
-   one warm coarse batch are then broken into stages with CUDA events. Then the refreshed
+   one warm coarse batch are then broken into stages with CUDA events
+   (the exact one also with its boundary: the copy to the card and
+   ``admit_query``). Then the refreshed
    table equals ``codes.build`` of the state, ``replay_log_fresh() ==
    state_hash()``, and the card's retrievals (all three routes) and code
    table equal the same state's on the CPU through the plain versions;
@@ -142,29 +148,99 @@ def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
 # --------------------------------------------------------------------------- #
 
 
+def graph_ms(torch, launch, iters: int) -> float:
+    """Per-launch time of ``iters`` launches captured in one CUDA graph and
+    replayed: the kernel with no Python between its launches."""
+    launch()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):  # launches go to the capture stream
+        for _ in range(iters):
+            launch()
+    return cuda_ms(torch, g.replay, 5) / iters
+
+
+def qboundary_rows(rng, n: int, d: int) -> np.ndarray:
+    """Seeded float32 rows with the boundary's hard cases in the first
+    rows: NaN, a zero row, a tiny row (1e-7), a saturating row whose int64
+    sum of squares wraps negative (norm 0: the row passes through), and a
+    row whose four -2^31 squares wrap to 0 so the small rest sets a tiny
+    norm (quotients beyond the range, clamped)."""
+    x = (rng.normal(size=(n, d)) * 2).astype(np.float32)
+    if n >= 4:
+        x[1] = 0.0
+        x[2] *= 1e-7
+        x[3, ::2], x[3, 1::2] = 40000.0, -40000.0
+    if n >= 5 and d >= 5:
+        x[4, :4] = -40000.0
+        x[4, 4:] *= 1e-3
+    x[0, 0] = np.nan
+    return x
+
+
 def check_qboundary(torch, dev, rng):
+    """Every case bitwise against the plain version (unit norm on and
+    off), with the path each took; then the whole call and the kernel
+    alone (a CUDA graph of launches) at both of the main path's shapes:
+    ingest batches [512, 2304] and query batches [64, 2304]."""
     from repro_torch.core.contracts import Q16_16
-    from repro_torch.kernels.qboundary import ops, ref
+    from repro_torch.kernels.qboundary import kernel, ops, ref
     acc = dict(max_abs_err=0, mismatches=0)
-    for n, d in [(1, 8), (4, 16), (257, 768), (100, 64), (3, 8192), (64, 2304),
-                 (BATCH, DIM)]:
-        x = (rng.normal(size=(n, d)) * 2).astype(np.float32)
-        if n >= 4:
-            x[1] = 0.0
-            x[2] *= 1e-7
-            x[3, ::2], x[3, 1::2] = 40000.0, -40000.0
-        x[0, 0] = np.nan
-        xt = torch.from_numpy(x).to(dev)
+    cases = {}
+
+    def run(name, xt):
+        case = dict(max_abs_err=0, mismatches=0, path=kernel.path(xt))
         for unit_norm in (True, False):
             compare(torch, ops.qboundary(xt, Q16_16, unit_norm=unit_norm),
-                    ref.qboundary_ref(xt, Q16_16, unit_norm), acc)
-    n, d = BATCH, DIM  # one ingest batch
-    xt = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
-    ms = cuda_ms(torch, lambda: ops.qboundary(xt, Q16_16), 50)
+                    ref.qboundary_ref(xt, Q16_16, unit_norm), case)
+        cases[name] = case
+        acc["max_abs_err"] = max(acc["max_abs_err"], case["max_abs_err"])
+        acc["mismatches"] += case["mismatches"]
+
+    for n, d in [(1, 8), (4, 16), (257, 768), (100, 64), (3, 8192),
+                 (QUERIES, DIM), (BATCH, DIM), (6, 1), (6, 3), (6, 77),
+                 (5, 2303), (5, 4097), (3, 40000), (2, 40003)]:
+        run(f"[{n}, {d}]", torch.from_numpy(qboundary_rows(rng, n, d)).to(dev))
+    # one float past 16-byte alignment: a contiguous view at offset 1
+    for n, d in [(6, 768), (QUERIES, DIM)]:
+        buf = torch.from_numpy(np.concatenate(
+            [[0.0], qboundary_rows(rng, n, d).ravel()]).astype(np.float32))
+        run(f"[{n}, {d}] at a one-float offset",
+            buf.to(dev)[1:].view(n, d))
+
+    timing = {}
+    for n in (QUERIES, BATCH):  # query batches, then ingest batches
+        xt = torch.from_numpy(rng.normal(size=(n, DIM)).astype(np.float32)
+                              ).to(dev)
+        out = torch.empty(xt.shape, dtype=torch.int32, device=dev)
+        timing[n] = dict(
+            call=cuda_ms(torch, lambda: ops.qboundary(xt, Q16_16), 50),
+            kernel=graph_ms(torch, lambda: kernel.launch(xt, out, Q16_16, True),
+                            50),
+            bound=bound_ms(n * DIM * 8, n * DIM * 4, F32_OPS_PER_S)[0],
+            path=kernel.path(xt))
     plain = cuda_ms(torch, lambda: ref.qboundary_ref(xt, Q16_16), 5)
-    b, by = bound_ms(n * d * 8, n * d * 4, F32_OPS_PER_S)
-    return dict(acc, ms=ms, plain_ms=plain, library_ms=None,
-                bound_ms=b, bound_by=by, shape=f"[{n}, {d}] f32 -> i32")
+    b, by = bound_ms(BATCH * DIM * 8, BATCH * DIM * 4, F32_OPS_PER_S)
+    q = timing[QUERIES]
+    return dict(acc, ms=timing[BATCH]["call"], plain_ms=plain, library_ms=None,
+                bound_ms=b, bound_by=by, kernel_ms=timing[BATCH]["kernel"],
+                ms_at_queries=q["call"], kernel_ms_at_queries=q["kernel"],
+                bound_ms_at_queries=q["bound"],
+                shape=f"[{BATCH}, {DIM}] f32 -> i32", cases=cases,
+                timing=timing)
+
+
+def report_qboundary(r) -> None:
+    """qboundary's cases with their paths, and at each shape the whole
+    call, the kernel alone and the host's share (call - kernel)."""
+    for name, case in r["cases"].items():
+        log(f"[kernel] qboundary {name}: {case['path']}, max_abs_err "
+            f"{case['max_abs_err']}, mismatches {case['mismatches']}")
+    for n, tm in r["timing"].items():
+        log(f"[kernel] qboundary [{n}, {DIM}] ({tm['path']}): call "
+            f"{tm['call']:.4f} ms, kernel alone {tm['kernel']:.4f} ms, host "
+            f"share {tm['call'] - tm['kernel']:.4f} ms (bound "
+            f"{tm['bound']:.5f} ms)")
 
 
 def check_qgemm(torch, dev, rng):
@@ -523,6 +599,9 @@ def stage_breakdown(torch, eng, queries) -> dict:
              "qtopk k=10": ms(lambda: qtopk_ops.qtopk(scores, ranks, K))}
     exact["norms, masks, id argsort (rest)"] = (
         exact["total"] - exact["qgemm"] - exact["qtopk k=10"])
+    # outside the search: the batch's copy to the card and its boundary
+    exact["boundary outside the search: copy to card + admit_query"] = ms(
+        lambda: boundary.admit_query(eng._as_f32(queries), eng.sc.contract))
     # coarse: qcoarse, qtopk (k = 256), re-rank qgemm, and the rest
     w = codes.query_weights(q, table, search.METRIC_L2)
     approx = torch.where(state.valid[None, :],
@@ -609,6 +688,7 @@ def run_engine(torch, dev, n_docs: int, seed: int):
         eng.insert_documents(emb)
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
+    boundary_ingest = kernels.launch_counts()["qboundary"]
     n_docs = eng.live_count()
     dead = rng.choice(n_docs, size=n_docs // 100, replace=False)
     t0 = time.perf_counter()
@@ -638,10 +718,12 @@ def run_engine(torch, dev, n_docs: int, seed: int):
     eng.sc.ef_coarse = EF_COARSE
     # one more insert batch refreshes the maintained table
     extra = rng.normal(size=(BATCH, DIM)).astype(np.float32)
+    before = kernels.launch_counts()["qboundary"]
     t0 = time.perf_counter()
     eng.insert_documents(extra)
     torch.cuda.synchronize()
     refresh_s = time.perf_counter() - t0
+    boundary_ingest += kernels.launch_counts()["qboundary"] - before
     t0 = time.perf_counter()
     refreshed = eng.retrieve(queries[0])
     refreshed_ms = (time.perf_counter() - t0) * 1e3
@@ -659,7 +741,10 @@ def run_engine(torch, dev, n_docs: int, seed: int):
             f"{extra_note}, cold batch {times[route][0]:.3f} ms, then "
             f"{len(warm)} batches: p50 {statistics.median(warm):.3f} "
             f"ms/batch, min {min(warm):.3f}, max {max(warm):.3f}")
-    log(f"[engine] kernel launches on the main path: {counts}")
+    log(f"[engine] kernel launches on the main path: {counts}; qboundary "
+        f"{boundary_ingest} at [{BATCH}, {DIM}] (ingest), "
+        f"{counts['qboundary'] - boundary_ingest} at [{QUERIES}, {DIM}] "
+        f"(queries)")
     for route, stages in stage_breakdown(torch, eng, queries[1]).items():
         log(f"[engine] one warm {route} batch by stage (CUDA events, ms): "
             + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
@@ -851,6 +936,7 @@ def main() -> int:
             f" ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
         if r["max_abs_err"] != 0 or r["mismatches"] != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
+    report_qboundary(results["qboundary"])
     for name in ("qgemm", "qcoarse"):
         for case, path in results[name]["paths"].items():
             log(f"[kernel] {name} {case}: {path}")
@@ -884,7 +970,8 @@ def main() -> int:
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
                  **{key: v for key, v in r.items()
-                    if key.endswith("_at_ef_coarse") or key == "timing"})
+                    if key.endswith(("_at_ef_coarse", "_at_queries"))
+                    or key in ("timing", "kernel_ms")})
             for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kern}))

@@ -2,12 +2,12 @@
 """Build kernels, check them against their plain versions and time them
 at the main path's shapes, on one NVIDIA GPU.
 
-    python3 scripts/probe_qcoarse.py [qgemm] [qcoarse] [qtopk]
+    python3 scripts/probe_qcoarse.py [qgemm] [qcoarse] [qtopk] [qboundary]
 
 The short first call after an edit of ``csrc/qgemm.cu``,
-``csrc/qcoarse.cu``, ``csrc/imma.cuh`` or ``csrc/qtopk.cu`` (no argument:
-qgemm and qcoarse): it prints the card, the compiler's register and spill
-report per kernel, the SASS counts of integer tensor-core and ``dp4a``
+``csrc/qcoarse.cu``, ``csrc/imma.cuh``, ``csrc/qtopk.cu`` or
+``csrc/qboundary.cu`` (no argument: qgemm and qcoarse): it prints the
+card, the compiler's register and spill report per kernel, the SASS counts of integer tensor-core and ``dp4a``
 instructions, and the result of ``chip_smoke.check_qgemm`` /
 ``check_qcoarse`` (bitwise checks at odd, prime, padded, unaligned,
 wide-valued and extreme shapes, each with the load path it took, then the
@@ -15,9 +15,14 @@ kernel's, the plain version's and the float64 ``torch.matmul``'s time at
 the main path's shape) or ``check_qtopk`` (every case against the blocked
 plain version, then the call, kernels-alone and merge times at k = 10,
 256 and 8192), and for qtopk each phase's launch alone at [64, 131072]
-on rows of several kinds. Exits non-zero on any mismatch.
+on rows of several kinds; or ``check_qboundary`` (every case with its
+path, then the whole call and the kernel alone at [64, 2304] and
+[512, 2304]), each launch shape (groups of four values per thread)
+checked and timed alone, and the host's time to enqueue one call. Exits
+non-zero on any mismatch.
 ``chip_smoke.py`` runs the same checks as part of the port's full check.
 """
+import ctypes
 import json
 import pathlib
 import subprocess
@@ -31,7 +36,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (puts the repository's src/ on sys.path)
 
 CHECKS = {"qgemm": chip_smoke.check_qgemm, "qcoarse": chip_smoke.check_qcoarse,
-          "qtopk": chip_smoke.check_qtopk}
+          "qtopk": chip_smoke.check_qtopk,
+          "qboundary": chip_smoke.check_qboundary}
 
 
 def qtopk_phases(torch, dev) -> None:
@@ -74,6 +80,67 @@ def qtopk_phases(torch, dev) -> None:
                   f"{p1:.4f} ms, phase 2 {p2:.4f} ms")
 
 
+def qboundary_configs(torch, dev) -> None:
+    """qboundary's launch shapes, each checked bitwise and timed alone (a
+    CUDA graph of launches) at the main path's shapes: groups of four
+    values per thread (1, 2, 4, 8: threads per row shrink as they grow);
+    then the host's time to enqueue one call."""
+    import time
+    from repro_torch.core.contracts import Q16_16
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.qboundary import kernel, ops, ref
+    rng = np.random.default_rng(2)
+    xs = {(n, d): torch.from_numpy(chip_smoke.qboundary_rows(rng, n, d)).to(dev)
+          for n, d in [(chip_smoke.QUERIES, chip_smoke.DIM),
+                       (chip_smoke.BATCH, chip_smoke.DIM), (6, 77), (5, 2303),
+                       (5, 4097)]}
+    want = {key: ref.qboundary_ref(x, Q16_16) for key, x in xs.items()}
+    for per in (1, 2, 4, 8):
+        bad = 0
+        for key, x in xs.items():
+            out = torch.empty_like(x, dtype=torch.int32)
+            kernel.launch(x, out, Q16_16, True, per)
+            bad += int((out != want[key]).sum())
+        times = []
+        for n in (chip_smoke.QUERIES, chip_smoke.BATCH):
+            x = xs[(n, chip_smoke.DIM)]
+            out = torch.empty_like(x, dtype=torch.int32)
+            times.append(chip_smoke.graph_ms(torch, lambda: kernel.launch(
+                x, out, Q16_16, True, per), 50))
+        _, _, threads = kernel.plan(x, out, kernel.params(Q16_16, True, per)[0])
+        print(f"qboundary {per} group(s) x {threads} threads per row: "
+              f"mismatches {bad}; kernel alone {times[0]:.5f} ms at [64, "
+              f"2304], {times[1]:.5f} ms at [512, 2304]")
+
+    def host_ms(fn, iters=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t = (time.perf_counter() - t0) / iters * 1e3
+        torch.cuda.synchronize()
+        return t
+
+    plan_fn = _build.helper("qboundary", "qboundary_plan",
+                            [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                            + [ctypes.c_void_p] * 2)
+    res, addr = (ctypes.c_int * 3)(), kernel.params(Q16_16, True)[1]
+    for n in (chip_smoke.QUERIES, chip_smoke.BATCH):
+        x = xs[(n, chip_smoke.DIM)]
+        out = torch.empty_like(x, dtype=torch.int32)
+        call = host_ms(lambda: ops.qboundary(x))
+        launch = host_ms(lambda: kernel.launch(x, out, Q16_16, True))
+        alloc = host_ms(lambda: torch.empty_like(x, dtype=torch.int32))
+        bare = host_ms(lambda: plan_fn(x.data_ptr(), out.data_ptr(),
+                                       chip_smoke.DIM, addr, res))
+        print(f"qboundary [{n}, 2304]: host clock per call, unsynchronized "
+              f"(the enqueue rate): whole call {call:.4f} ms, of which the "
+              f"launch {launch:.4f} ms (a ctypes call of a C function that "
+              f"launches nothing: {bare:.4f} ms) and the output's "
+              f"allocation {alloc:.4f} ms")
+
+
 def main() -> int:
     names = sys.argv[1:] or ["qgemm", "qcoarse"]
     import torch
@@ -95,7 +162,10 @@ def main() -> int:
         if name == "qtopk":
             chip_smoke.report_qtopk(r)
             qtopk_phases(torch, torch.device("cuda"))
-            r = {key: v for key, v in r.items() if key != "cases"}
+        if name == "qboundary":
+            chip_smoke.report_qboundary(r)
+            qboundary_configs(torch, torch.device("cuda"))
+        r = {key: v for key, v in r.items() if key != "cases"}
         print(f"{name} {json.dumps(r, indent=1)}")
         bad |= bool(r["mismatches"] or r["max_abs_err"])
     return 1 if bad else 0

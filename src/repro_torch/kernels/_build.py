@@ -32,11 +32,9 @@ KERNELS = ("qboundary", "qgemm", "qtopk", "qcoarse")
 _LIBS: Dict[str, ctypes.CDLL] = {}
 PTXAS_LOG: Dict[str, str] = {}
 
-_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                        ctypes.c_float)
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
-    "qboundary": [_P, _P, _I64, _I64, _F32, _F32, _F32, _I64, _I64, _I32,
-                  _I32, _P],
+    "qboundary": [_P, _P, _I64, _I64, _P, _P],
     "qgemm": [_P, _P, _P, _I64, _I64, _I64, _I32, _P],
     "qtopk": [_P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _P, _P, _I64, _I64,
               _I32, _I32, _P],

@@ -30,7 +30,7 @@ def qboundary(x: torch.Tensor, contract: PrecisionContract = DEFAULT_CONTRACT,
         raise TypeError(f"qboundary takes float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("qboundary needs a contiguous input")
-    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    out = torch.empty_like(x, dtype=torch.int32)
     _kernel.launch(x, out, contract, unit_norm)
     LAUNCHES += 1
     return out
