@@ -11,7 +11,10 @@ Phases (any failure raises and exits non-zero):
    plain PyTorch version on the card, bitwise, at the main path's shapes
    and at edge shapes (qboundary also at odd widths, at d = 40000 on its
    looped form, one float past 16-byte alignment and on rows whose sum of
-   squares wraps, each case with the path it took, and timed at both of
+   squares wraps, each case with the path it took; under Q4.27 and Q1.30,
+   beyond its reciprocal-division bound, ``normalize_embedding`` on the
+   card takes the kernel's exact-divide instance, one launch per call, and
+   equals the CPU's on every load path; and timed at both of
    its main-path shapes as a whole call and as the kernel alone in a CUDA
    graph; qgemm also on int16 and int64 rows and on values
    beyond +-2^23 in some tiles, against the CPU's int64 product; each
@@ -52,7 +55,28 @@ Phases (any failure raises and exits non-zero):
    v2 snapshots restore onto the card with their recorded hash; the
    engine's full-width state survives a v1 round trip in memory and a v2
    round trip through a chunk store (1 MiB chunks, temporary directory),
-   and its code table a VLRQ round trip, with unchanged hashes.
+   and its code table a VLRQ round trip, with unchanged hashes;
+5. durable — the engine at the same width with ``durable_dir`` in a
+   temporary directory and ``checkpoint_every = 1024``: 3 batches of 512
+   ingested (the first also into an in-memory engine, whose hash it must
+   equal), 1 % deleted, ``checkpoint()``, one more batch; its state hash
+   and the exact and coarse ``retrieval_hash`` of 64 queries are recorded
+   and a fresh engine's ``recover()`` over the directory must give all
+   three, with ``replay_log_fresh() == state_hash()``; the last WAL
+   segment then loses 5 bytes, and recover on the card must land on the
+   last whole record with the hash of that prefix applied in memory, the
+   CPU's recover of the same directory must equal the card's, and
+   ``rollback_to`` the checkpoint must give
+   the checkpoint's hash; a group-commit engine (nothing durable before
+   the read barrier) and a compaction engine on a delete-heavy log must
+   reach the in-memory engine's hash (both at d = 2304 over an 8192-row
+   arena, ``SIDE_CAPACITY``); the JAX-written interop store
+   (``tests/fixtures/torch_port_durable/``) recovers on the card with its
+   recorded ``(t, hash)`` and every ``restore_at`` hash. Prints each
+   stage's time, durable ingest docs/s beside in-memory, the checkpoints'
+   chunk counts, WAL bytes per document and the durable path's kernel
+   launches (zeroed before the durable engine is built, read after the
+   recovered engine's reads and replay).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs the repository's ``src/``
@@ -95,6 +119,12 @@ EXACT_BATCHES = 50
 HNSW_BATCHES = 10
 COARSE_BATCHES = 50
 CHUNK_SIZE = 1 << 20  # v2 snapshot chunks at full width
+DURABLE_BATCHES = 3  # phase 5 ingests 3 batches, deletes 1 %, checkpoints,
+CHECKPOINT_EVERY = 1024  # then one more batch
+# phase 5's group-commit and compaction engines: d = 2304 over a smaller
+# arena (each full-size genesis snapshot or restore costs 20-35 s of 8 KB
+# chunks on the host)
+SIDE_CAPACITY = 8192
 
 REPLACES = {
     "qboundary": "src/repro/kernels/qboundary/kernel.py:29",
@@ -241,6 +271,50 @@ def report_qboundary(r) -> None:
             f"{tm['call']:.4f} ms, kernel alone {tm['kernel']:.4f} ms, host "
             f"share {tm['call'] - tm['kernel']:.4f} ms (bound "
             f"{tm['bound']:.5f} ms)")
+
+
+def check_qboundary_contracts(torch, dev, rng) -> dict:
+    """Contracts beyond the kernel's reciprocal-division bound (int_bits +
+    2 * frac_bits > 51: Q4.27, Q1.30) go through the kernel on the card
+    (the wide instance, an exact 64-bit divide per element, with unit
+    norm), one launch per call, and equal the CPU's ``normalize_embedding``
+    bit for bit. Returns {case: "kernel, <path>"} and the wide instance's
+    kernel time at the ingest shape beside Q16.16's."""
+    from repro_torch.core import boundary
+    from repro_torch.core.contracts import PrecisionContract, Q16_16
+    from repro_torch.kernels.qboundary import kernel, ops
+    routes = {}
+    for name, ib, fb in (("Q4.27", 4, 27), ("Q1.30", 1, 30)):
+        c = PrecisionContract(name, int_bits=ib, frac_bits=fb)
+        if not kernel.params(c, True)[0].wide:
+            raise AssertionError(f"{name} does not take the exact divide")
+        for n, d in ((QUERIES, DIM), (BATCH, DIM), (6, 77), (3, 40000)):
+            x = qboundary_rows(rng, n, d)
+            xt = torch.from_numpy(x).to(dev)
+            for unit_norm in (True, False):
+                before = ops.LAUNCHES
+                got = boundary.normalize_embedding(xt, c, unit_norm)
+                if ops.LAUNCHES - before != 1:
+                    raise AssertionError(
+                        f"normalize_embedding {name} unit_norm={unit_norm}: "
+                        f"{ops.LAUNCHES - before} kernel launches, want 1")
+                want = boundary.normalize_embedding(torch.from_numpy(x), c,
+                                                    unit_norm)
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(
+                        f"normalize_embedding {name} [{n}, {d}] unit_norm="
+                        f"{unit_norm}: card and CPU differ")
+                step = "exact divide" if unit_norm else "encode only"
+                routes[f"{name} [{n}, {d}] unit_norm={unit_norm}"] = (
+                    f"kernel ({step}), {kernel.path(xt)}")
+    xt = torch.from_numpy(rng.normal(size=(BATCH, DIM)).astype(np.float32)
+                          ).to(dev)
+    out = torch.empty(xt.shape, dtype=torch.int32, device=dev)
+    wide = PrecisionContract("Q4.27", int_bits=4, frac_bits=27)
+    timing = {f"{c.name} [{BATCH}, {DIM}]": graph_ms(
+        torch, lambda c=c: kernel.launch(xt, out, c, True), 50)
+        for c in (Q16_16, wide)}
+    return routes, timing
 
 
 def check_qgemm(torch, dev, rng):
@@ -886,6 +960,254 @@ def check_snapshots(torch, dev, eng) -> None:
             f"unchanged")
 
 
+# --------------------------------------------------------------------------- #
+# phase 5: durability
+# --------------------------------------------------------------------------- #
+
+
+def wal_bytes(store) -> int:
+    return sum(p.stat().st_size for p in (store.dir / "wal").glob("*.wal"))
+
+
+def run_durable(torch, dev, seed: int) -> dict:
+    """The flat engine's durable mode at phase 3's width: durable ingest,
+    checkpoints (background and synchronous), crash → recover on a fresh
+    engine (card and CPU), a torn WAL tail, rollback, group commit,
+    compaction and the JAX-written interop fixture, each held to its hash.
+    Returns the stage times and the kernel launches of the durable path."""
+    from repro_torch import kernels
+    from repro_torch.core import commands, durability, hashing, machine
+    from repro_torch.core import wal as wal_lib
+    from repro_torch.serve.engine import MemoryAugmentedEngine, ServeConfig
+
+    rng = np.random.default_rng(seed + 2)
+    batches = [rng.normal(size=(BATCH, DIM)).astype(np.float32)
+               for _ in range(DURABLE_BATCHES + 1)]
+    queries = rng.normal(size=(QUERIES, DIM)).astype(np.float32)
+    base = dict(capacity=CAPACITY, retrieve_k=K, ef=EF, ef_coarse=EF_COARSE)
+    times, out = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return res
+
+    def hashes(eng):
+        res = {"state": eng.state_hash()}
+        for route in ("exact", "coarse"):
+            eng.sc.route = route
+            res[route] = eng.retrieval_hash(queries)
+        eng.sc.route = "auto"
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # the in-memory engine, fed the first batch: the reference of the
+        # durable engines below and the in-memory rate beside the durable one
+        mem = MemoryAugmentedEngine(DIM, ServeConfig(**base), device=dev)
+        timed("in-memory ingest, 1 batch", lambda: mem.insert_documents(
+            batches[0]))
+        mem_first = mem.memory
+        side = dict(base, capacity=SIDE_CAPACITY)
+        mem_side = MemoryAugmentedEngine(DIM, ServeConfig(**side), device=dev)
+        mem_side.insert_documents(batches[0])
+        side_first = mem_side.memory
+        del mem_side
+
+        kernels.reset_launch_counts()  # ---- the durable path starts here ----
+        eng = timed("durable engine + genesis snapshot", lambda:
+                    MemoryAugmentedEngine(DIM, ServeConfig(
+                        durable_dir=str(tmp / "a"),
+                        checkpoint_every=CHECKPOINT_EVERY, **base),
+                        device=dev))
+        store = eng.durable
+        background = []
+        store_checkpoint = store.checkpoint
+
+        def checkpoint_timed(state):  # times the background checkpoints
+            t0 = time.perf_counter()
+            stats = store_checkpoint(state)
+            background.append((time.perf_counter() - t0, stats))
+            return stats
+
+        store.checkpoint = checkpoint_timed
+        for i in range(DURABLE_BATCHES):
+            timed(f"durable ingest batch {i}",
+                  lambda: eng.insert_documents(batches[i]))
+            if i == 0 and eng.state_hash() != hashing.hash_state_device(
+                    mem_first):
+                raise AssertionError("durable engine != in-memory engine")
+        n_docs = eng.live_count()
+        dead = rng.choice(n_docs, size=n_docs // 100, replace=False)
+        timed("delete 1 %", lambda: eng.delete_documents(dead.tolist()))
+        timed("wait for the background checkpoint", eng.wait_durable)
+        store.checkpoint = store_checkpoint
+        sync = timed("synchronous checkpoint (+ code table)", eng.checkpoint)
+        t_ckpt, h_ckpt, at_ckpt = eng.flush(), eng.state_hash(), eng.memory
+        timed(f"durable ingest batch {DURABLE_BATCHES}",
+              lambda: eng.insert_documents(batches[DURABLE_BATCHES]))
+        before = hashes(eng)
+        t_end = eng.flush()
+        log_end = eng.log
+        n_wal = wal_bytes(store)
+        eng.close()
+        del eng
+        out.update(t_ckpt=t_ckpt, t_end=t_end, wal_bytes=n_wal,
+                   snapshots=store.snapshots(), background=background,
+                   sync=sync)
+
+        # crash: a fresh engine over the same directory recovers
+        b = MemoryAugmentedEngine(DIM, ServeConfig(durable_dir=str(tmp / "a"),
+                                                   **base), device=dev)
+        got = timed("recover on the card", b.recover)
+        if got != (t_end, before["state"]) or hashes(b) != before:
+            raise AssertionError("recover on the card != the crashed engine")
+        if timed("replay_log_fresh", b.replay_log_fresh) != before["state"]:
+            raise AssertionError("replay_log_fresh() != state_hash()")
+        counts = kernels.launch_counts()  # ---- the durable path ends here ----
+        del b
+
+        # a torn tail: the last segment loses a few bytes; the card and the
+        # CPU each recover it
+        seg = sorted((tmp / "a" / "wal").glob("seg_*.wal"))[-1]
+        with open(seg, "r+b") as f:
+            f.truncate(seg.stat().st_size - 5)
+        b2 = MemoryAugmentedEngine(DIM, ServeConfig(
+            durable_dir=str(tmp / "a"), **base), device=dev)
+        t_torn, h_torn = timed("recover after a torn tail", b2.recover)
+        prefix = timed("the same prefix applied in memory", lambda:
+                       machine.bulk_apply(at_ckpt,
+                                          log_end.slice(t_ckpt, t_torn)))
+        if t_torn != t_end - 1 or h_torn != hashing.hash_state_device(prefix):
+            raise AssertionError("torn-tail recover != the in-memory prefix")
+        c = MemoryAugmentedEngine(DIM, ServeConfig(durable_dir=str(tmp / "a"),
+                                                   **base), device="cpu")
+        if timed("recover on the CPU", c.recover) != (t_torn, h_torn):
+            raise AssertionError("recover: card and CPU differ")
+        del c
+        got = timed("rollback_to the checkpoint", lambda:
+                    b2.rollback_to(t_ckpt))
+        if got != (t_ckpt, h_ckpt):
+            raise AssertionError("rollback_to != the checkpoint's hash")
+        del b2, prefix, at_ckpt
+
+        # group commit: the first batch buffers until the read barrier
+        dead0 = rng.choice(BATCH, size=BATCH // 100, replace=False)
+        ref = machine.bulk_apply(side_first, commands.delete_batch(
+            torch.from_numpy(np.sort(dead0)).to(dev), DIM))
+        g = MemoryAugmentedEngine(DIM, ServeConfig(
+            durable_dir=str(tmp / "g"),
+            group_commit=wal_lib.GroupCommitPolicy(max_batch=1024,
+                                                   max_delay_s=3600),
+            **side), device=dev)
+        timed("group-commit ingest, 1 batch", lambda: g.insert_documents(
+            batches[0]))
+        g.delete_documents(dead0.tolist())
+        pending = g.durable.t
+        timed("read barrier flush + read", lambda: g.retrieve(queries))
+        if pending != 0 or g.durable.t != BATCH + len(dead0) \
+                or g.state_hash() != hashing.hash_state_device(ref):
+            raise AssertionError("group commit != the in-memory engine")
+        g.close()
+        del g
+
+        # compaction on a delete-heavy log: absent ids and repeated deletes
+        # fold to NOP runs; the state must not move
+        live = rng.choice(BATCH, size=BATCH // 4, replace=False).tolist()
+        absent = list(range(10 * CAPACITY, 10 * CAPACITY + BATCH // 2))
+        e = MemoryAugmentedEngine(DIM, ServeConfig(
+            durable_dir=str(tmp / "e"), compaction=wal_lib.CompactionPolicy(
+                dead_ratio=0.2, min_commands=BATCH, check_every=BATCH // 4),
+            **side), device=dev)
+        e.insert_documents(batches[0])
+        ref = side_first
+        t0 = time.perf_counter()
+        for ids in (absent, live, live):
+            e.delete_documents(ids)
+        times["compaction engine: 3 delete batches"] = \
+            time.perf_counter() - t0
+        for ids in (absent, live, live):
+            ref = machine.bulk_apply(ref, commands.delete_batch(
+                torch.tensor(sorted(ids), device=dev), DIM))
+        folded = int((e.durable.wal.read_range(
+            0, e.durable.t, device="cpu").opcode == commands.NOP).sum())
+        if folded == 0 or e.state_hash() != hashing.hash_state_device(ref):
+            raise AssertionError("compaction engine != the in-memory engine")
+        out.update(folded=folded, compacted_wal=wal_bytes(e.durable),
+                   delete_heavy_commands=e.durable.t)
+        e.close()
+        del e, ref, mem, mem_first, side_first
+
+        # the interop fixture the JAX package wrote
+        fx = ROOT / "tests" / "fixtures" / "torch_port_durable"
+        expect = json.loads((fx / "expected.json").read_text())
+        shutil.copytree(fx / "store", tmp / "fixture")
+        fstore = durability.DurableStore(tmp / "fixture", device=dev)
+        state, h, t = fstore.recover()
+        if state.device.type != dev.type or \
+                (t, f"{h:#018x}") != (expect["recover"]["t"],
+                                      expect["recover"]["state_hash"]):
+            raise AssertionError("interop fixture: recover on the card")
+        for off, want in expect["restore_at"].items():
+            if f"{fstore.restore_at(int(off))[1]:#018x}" != want:
+                raise AssertionError(f"interop fixture: restore_at({off})")
+        out["fixture"] = (t, f"{h:#018x}", len(expect["restore_at"]))
+    out.update(times=times, counts=counts, before=before,
+               torn=(t_torn, h_torn), n_docs=n_docs + BATCH)
+    return out
+
+
+def report_durable(r) -> None:
+    for name, secs in r["times"].items():
+        log(f"[durable] {name}: {secs:.3f} s")
+    per_batch = [r["times"][f"durable ingest batch {i}"]
+                 for i in range(DURABLE_BATCHES + 1)]
+    docs = BATCH * len(per_batch)
+    ingest = sum(per_batch)
+    mem = r["times"]["in-memory ingest, 1 batch"]
+    first = per_batch[0]
+    log(f"[durable] durable ingest {docs} docs in {ingest:.3f} s = "
+        f"{docs / ingest:.1f} docs/s (batches of {BATCH}, d={DIM}, "
+        f"WAL-append + fsync per batch, checkpoint_every={CHECKPOINT_EVERY}); "
+        f"first batch durable {BATCH / first:.1f} docs/s vs the same batch "
+        f"in memory {BATCH / mem:.1f} docs/s")
+    for secs, stats in r["background"]:
+        log(f"[durable] background checkpoint at t={stats['t']}: "
+            f"{secs:.3f} s, {stats['chunks']} chunks of 8192 bytes, "
+            f"{stats['chunks_written']} written ({stats['bytes_written']} of "
+            f"{stats['bytes_total']} bytes)")
+    s = r["sync"]
+    log(f"[durable] synchronous checkpoint at t={s['t']}: {s['chunks']} "
+        f"chunks, {s['chunks_written']} written ({s['bytes_written']} of "
+        f"{s['bytes_total']} bytes)")
+    log(f"[durable] WAL {r['wal_bytes']} bytes for {r['t_end']} commands "
+        f"({r['n_docs']} inserts): {r['wal_bytes'] / r['n_docs']:.1f} bytes "
+        f"per document; snapshots at {r['snapshots']}")
+    b = r["before"]
+    log(f"[durable] crashed engine t={r['t_end']} state_hash "
+        f"{b['state']:#018x}, exact {b['exact']:#018x}, coarse "
+        f"{b['coarse']:#018x}: a fresh engine's recover() on the card equals "
+        f"all three, replay_log_fresh equals state_hash")
+    log(f"[durable] torn tail (5 bytes cut): recover on the card lands on t="
+        f"{r['torn'][0]} with {r['torn'][1]:#018x} == the in-memory prefix "
+        f"== the CPU's recover; rollback_to({r['t_ckpt']}) equals the "
+        f"checkpoint's hash")
+    log(f"[durable] group commit (max_batch=1024): nothing durable before "
+        f"the read barrier, then the in-memory engine's hash; compaction "
+        f"folded {r['folded']} of {r['delete_heavy_commands']} commands "
+        f"(WAL {r['compacted_wal']} bytes), hash unchanged")
+    t, h, n = r["fixture"]
+    log(f"[durable] JAX-written interop fixture recovered on the card: "
+        f"t={t} {h}, {n} restore_at hashes reproduced")
+    log(f"[durable] kernel launches on the durable path: {r['counts']}")
+    if min(r["counts"].values()) < 1:
+        raise AssertionError(
+            f"a kernel of the durable path never launched: {r['counts']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=8192,
@@ -937,6 +1259,12 @@ def main() -> int:
         if r["max_abs_err"] != 0 or r["mismatches"] != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
     report_qboundary(results["qboundary"])
+    routes, wide_ms = check_qboundary_contracts(torch, dev, rng)
+    for case, route in routes.items():
+        log(f"[kernel] qboundary {case}: {route}, one launch, equals the "
+            f"CPU's normalize_embedding bit for bit")
+    log("[kernel] qboundary kernel alone, unit norm: " + ", ".join(
+        f"{case} {ms:.4f} ms" for case, ms in wide_ms.items()))
     for name in ("qgemm", "qcoarse"):
         for case, path in results[name]["paths"].items():
             log(f"[kernel] {name} {case}: {path}")
@@ -962,9 +1290,15 @@ def main() -> int:
     check_snapshots(torch, dev, eng)
     del eng
 
+    t0 = time.perf_counter()
+    durable = run_durable(torch, dev, args.seed)
+    report_durable(durable)
+    log(f"[durable] phase 5 in {time.perf_counter() - t0:.1f} s")
+
     kern = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/kernels/csrc/{name}.cu",
                  replaces=REPLACES[name], launches=counts[name],
+                 launches_durable=durable["counts"][name],
                  max_abs_err=r["max_abs_err"], mismatches=r["mismatches"],
                  ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

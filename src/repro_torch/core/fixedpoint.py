@@ -1,7 +1,14 @@
-"""Q-format fixed-point arithmetic in PyTorch (paper §5.1): the parts the
-flat substrate's path uses — the float→fixed encode, decode, saturation,
-and the exact integer L2 normalization (``isqrt`` + round-to-nearest
-division) behind the unit-norm boundary.
+"""Q-format fixed-point arithmetic in PyTorch (paper §5.1), the port of
+``repro.core.fixedpoint``: the float→fixed encode and decode, saturation,
+the arithmetic (add, subtract, negate, multiply, divide, sums, means and
+dot products, with Q32.32 products through ``core.limbs``) and the exact
+integer L2 normalization (``isqrt`` + round-to-nearest division) behind
+the unit-norm boundary.
+
+Conventions, as in the reference: "raw" values are the integers of the
+contract's storage dtype; products widen to ``contract.acc_dtype`` and
+shift back once with round half up (``(x + half) >> frac_bits``); every
+narrowing saturates; integer sums accumulate in int64.
 
 Every operation after ``encode`` is integer arithmetic with explicit
 dtypes, so results are bit-identical on the CPU and on the card. ``encode``
@@ -61,11 +68,130 @@ def decode(raw: torch.Tensor, contract: PrecisionContract = DEFAULT_CONTRACT
     return raw.to(torch.float64) / contract.one
 
 
+def decode_f32(raw: torch.Tensor,
+               contract: PrecisionContract = DEFAULT_CONTRACT) -> torch.Tensor:
+    """Raw fixed-point → float32 (one correctly rounded convert and divide)."""
+    return raw.to(torch.float32) / float(contract.one)
+
+
 def saturate(wide: torch.Tensor, contract: PrecisionContract = DEFAULT_CONTRACT
              ) -> torch.Tensor:
     """Clamp a wide-integer value into the contract's raw range and narrow."""
     return torch.clamp(wide, contract.min_raw, contract.max_raw).to(
         contract.storage_dtype)
+
+
+def _shift_back(wide: torch.Tensor, contract: PrecisionContract
+                ) -> torch.Tensor:
+    """Divide a wide product by 2^frac_bits with round-half-up (arith shift)."""
+    return (wide + (1 << (contract.frac_bits - 1))) >> contract.frac_bits
+
+
+def _require_wide_products(contract: PrecisionContract) -> None:
+    """Products need 2x the storage width; int64 storage would need int128.
+    Q32.32 is served by ``qmul_q32`` / ``qdot_q32`` (``core.limbs``); the
+    narrow-contract paths refuse loudly instead of wrapping."""
+    if contract.storage_dtype.itemsize >= 8:
+        raise NotImplementedError(
+            f"{contract.name}: products need >64-bit accumulation; "
+            "use qmul_q32/qdot_q32 (core.limbs) for Q32.32")
+
+
+def _acc(x: torch.Tensor, contract: PrecisionContract) -> torch.Tensor:
+    return torch.as_tensor(x).to(contract.acc_dtype)
+
+
+def qadd(a, b, contract: PrecisionContract = DEFAULT_CONTRACT) -> torch.Tensor:
+    return saturate(_acc(a, contract) + _acc(b, contract), contract)
+
+
+def qsub(a, b, contract: PrecisionContract = DEFAULT_CONTRACT) -> torch.Tensor:
+    return saturate(_acc(a, contract) - _acc(b, contract), contract)
+
+
+def qneg(a, contract: PrecisionContract = DEFAULT_CONTRACT) -> torch.Tensor:
+    return saturate(-_acc(a, contract), contract)
+
+
+def qmul(a, b, contract: PrecisionContract = DEFAULT_CONTRACT) -> torch.Tensor:
+    """Fixed-point multiply: widen, multiply exactly, shift back, saturate."""
+    _require_wide_products(contract)
+    wide = _acc(a, contract) * _acc(b, contract)
+    return saturate(_shift_back(wide, contract), contract)
+
+
+def qdiv(a, b, contract: PrecisionContract = DEFAULT_CONTRACT) -> torch.Tensor:
+    """Fixed-point divide. b == 0 saturates to the signed max of matching sign."""
+    a = torch.as_tensor(a)
+    wide_a = _acc(a, contract) << contract.frac_bits
+    wide_b = _acc(b, contract)
+    safe_b = torch.where(wide_b == 0, torch.ones_like(wide_b), wide_b)
+    q = _int_div_round_to_nearest(wide_a, safe_b)
+    sat = torch.where(a >= 0, contract.max_raw, contract.min_raw).to(
+        contract.acc_dtype)
+    q = torch.where(wide_b == 0, sat, q)
+    return saturate(q, contract)
+
+
+def qmul_q32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact Q32.32 multiply: 64×64→128-bit limbs, >>32, saturate to int64."""
+    from repro_torch.core import limbs
+    return limbs.q32_dot_to_q32(a[..., None], b[..., None], axis=-1)
+
+
+def qdot_q32(a: torch.Tensor, b: torch.Tensor, axis: int = -1
+             ) -> torch.Tensor:
+    """Exact Q32.32 dot product (128-bit accumulation), Q32.32 result."""
+    from repro_torch.core import limbs
+    if axis != -1:
+        a = torch.movedim(a, axis, -1)
+        b = torch.movedim(b, axis, -1)
+    return limbs.q32_dot_to_q32(a, b, axis=-1)
+
+
+def qdot(a, b, axis: int = -1,
+         contract: PrecisionContract = DEFAULT_CONTRACT) -> torch.Tensor:
+    """Fixed-point dot product along ``axis``: exact wide products, an
+    integer (order-invariant) sum, one shift back at the end."""
+    _require_wide_products(contract)
+    acc = torch.sum(_acc(a, contract) * _acc(b, contract), dim=axis,
+                    dtype=torch.int64)
+    return saturate(_shift_back(acc, contract), contract)
+
+
+def qdot_wide(a, b, axis: int = -1,
+              contract: PrecisionContract = DEFAULT_CONTRACT) -> torch.Tensor:
+    """Like ``qdot`` but returns the wide (unshifted, Q(2f)) accumulator."""
+    _require_wide_products(contract)
+    return torch.sum(_acc(a, contract) * _acc(b, contract), dim=axis,
+                     dtype=torch.int64)
+
+
+def ql2sq_wide(a, b, axis: int = -1,
+               contract: PrecisionContract = DEFAULT_CONTRACT) -> torch.Tensor:
+    """Squared L2 distance in the wide accumulator (exact, Q(2f) scale)."""
+    d = _acc(a, contract) - _acc(b, contract)
+    return torch.sum(d * d, dim=axis, dtype=torch.int64)
+
+
+def _sum_all(a: torch.Tensor, axis) -> torch.Tensor:
+    if axis is None:
+        return torch.sum(a, dtype=torch.int64)
+    return torch.sum(a, dim=axis, dtype=torch.int64)
+
+
+def qsum(a, axis=None, contract: PrecisionContract = DEFAULT_CONTRACT
+         ) -> torch.Tensor:
+    return saturate(_sum_all(_acc(a, contract), axis), contract)
+
+
+def qmean(a, axis=None, contract: PrecisionContract = DEFAULT_CONTRACT
+          ) -> torch.Tensor:
+    a = torch.as_tensor(a)
+    wide = _sum_all(_acc(a, contract), axis)
+    n = a.shape[axis] if isinstance(axis, int) else a.numel()
+    return saturate(_int_div_round_to_nearest(wide, torch.full_like(wide, n)),
+                    contract)
 
 
 def _int_div_round_to_nearest(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -39,12 +39,19 @@ def _s64(x: int) -> int:
 
 
 def _leaves(tree: Any) -> List[Tuple[str, Any]]:
-    """(path string, leaf) in the reference's flattening order: dataclass
-    fields in declaration order (tensor fields only), tuple/list entries
-    by index."""
+    """(path string, leaf) in the reference's flattening order, with its
+    ``keystr`` path: dataclass fields in declaration order (tensor fields
+    only), tuple/list entries by index, dict entries in sorted key order;
+    None holds no leaf."""
     if isinstance(tree, (torch.Tensor, np.ndarray)):
         return [("", tree)]
+    if tree is None:
+        return []
     out = []
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out += [(f"[{k!r}]{p}", leaf) for p, leaf in _leaves(tree[k])]
+        return out
     if dataclasses.is_dataclass(tree):
         for f in dataclasses.fields(tree):
             v = getattr(tree, f.name)

@@ -24,7 +24,9 @@
 //   distributed shared memory (PERF.md, section 6).
 // * Rows wider than 1024 threads x 8 groups (32768 values) take a looped
 //   two-pass kernel that encodes each value twice (right, not fast).
-// * One reciprocal per row instead of a 64-bit divide per element (below).
+// * One reciprocal per row instead of a 64-bit divide per element (below),
+//   for every contract with int_bits + 2 frac_bits <= 51; beyond it, an
+//   exact 64-bit divide per element in a separate template instance.
 // * The floor square root is one correctly rounded double sqrt and one
 //   exact integer correction step, instead of a 32-step recurrence.
 //
@@ -44,7 +46,10 @@
 // frac_bits), so a <= 2^(int_bits + 2 frac_bits): below 2^52 whenever
 // int_bits + 2 frac_bits <= 51 (Q16.16: 47, an error of at most 2^-5),
 // and then the error is below 1 and q0 is q - 1, q or q + 1 for the true
-// quotient q. The wrapper refuses a contract beyond that bound.
+// quotient q. A contract beyond that bound (Q4.27: 58, Q1.30: 61; an int32
+// contract reaches at most 62, so a < 2^63) takes the wide instance
+// (kWide, from QbParams.wide): one exact unsigned 64-bit divide per
+// element, q = a / N and rem = a - q N, then the same rounding.
 //
 // The square root. For a sum s in [1, 2^63): double(s) and the sqrt each
 // round once, so r = trunc(sqrt_rn(double(s))) is within 1.5 * 2^-53 *
@@ -66,6 +71,7 @@ struct QbParams {
   long long min_raw, max_raw;
   int unit_norm;
   int per_thread;  // groups of four values a thread holds; 0: chosen here
+  int wide;        // unit_norm beyond the reciprocal's bound: exact divide
 };
 
 namespace {
@@ -106,19 +112,27 @@ __device__ __forceinline__ long long isqrt_s64(long long s) {
 }
 
 // (r << frac_bits) / norm rounded half away from zero, clamped; norm >= 1
-// and inv = RN(1 / norm).
+// and inv = RN(1 / norm) (unused by the wide instance).
+template <bool kWide>
 __device__ __forceinline__ int32_t divide_one(int32_t r, long long norm,
                                               double inv, const QbParams& p) {
   const long long num = static_cast<long long>(r) * (1LL << p.frac_bits);
   const long long a = num < 0 ? -num : num;
-  long long q = static_cast<long long>(__dmul_rn(__ll2double_rn(a), inv));
-  long long rem = a - q * norm;
-  if (rem < 0) {
-    --q;
-    rem += norm;
-  } else if (rem >= norm) {
-    ++q;
-    rem -= norm;
+  long long q, rem;
+  if constexpr (kWide) {
+    q = static_cast<long long>(static_cast<unsigned long long>(a) /
+                               static_cast<unsigned long long>(norm));
+    rem = a - q * norm;
+  } else {
+    q = static_cast<long long>(__dmul_rn(__ll2double_rn(a), inv));
+    rem = a - q * norm;
+    if (rem < 0) {
+      --q;
+      rem += norm;
+    } else if (rem >= norm) {
+      ++q;
+      rem -= norm;
+    }
   }
   const long long mag = q + ((2 * rem >= norm) ? 1 : 0);
   long long v = num < 0 ? -mag : mag;
@@ -153,8 +167,8 @@ __device__ RowNorm row_norm(unsigned long long sq) {
 }
 
 // One row per block. Thread t holds groups t, t + blockDim, ...: kPer
-// float4 groups (kVec) or 4 * kPer single values.
-template <int kPer, bool kVec>
+// float4 groups (kVec) or 4 * kPer single values; kWide divides exactly.
+template <int kPer, bool kVec, bool kWide>
 __global__ void __launch_bounds__(kMaxThreads)
 qboundary_rows(const float* __restrict__ x, int32_t* __restrict__ out,
                int64_t d, QbParams p) {
@@ -187,7 +201,8 @@ qboundary_rows(const float* __restrict__ x, int32_t* __restrict__ out,
     const RowNorm nm = row_norm(sq);
     if (nm.norm != 0) {
 #pragma unroll
-      for (int i = 0; i < kVals; ++i) r[i] = divide_one(r[i], nm.norm, nm.inv, p);
+      for (int i = 0; i < kVals; ++i)
+        r[i] = divide_one<kWide>(r[i], nm.norm, nm.inv, p);
     }
   }
 
@@ -207,6 +222,7 @@ qboundary_rows(const float* __restrict__ x, int32_t* __restrict__ out,
 
 // Rows too wide for the registers: encode and sum, then encode again and
 // divide. One block per row, single-value loads.
+template <bool kWide>
 __global__ void __launch_bounds__(kLoopThreads)
 qboundary_looped(const float* __restrict__ x, int32_t* __restrict__ out,
                  int64_t d, QbParams p) {
@@ -222,7 +238,7 @@ qboundary_looped(const float* __restrict__ x, int32_t* __restrict__ out,
   }
   for (int64_t j = threadIdx.x; j < d; j += blockDim.x) {
     const int32_t r = encode_one(xr[j], p);
-    orow[j] = nm.norm != 0 ? divide_one(r, nm.norm, nm.inv, p) : r;
+    orow[j] = nm.norm != 0 ? divide_one<kWide>(r, nm.norm, nm.inv, p) : r;
   }
 }
 
@@ -248,19 +264,32 @@ Plan plan_of(const void* x, const void* out, int64_t d, const QbParams& p) {
               static_cast<int>((threads + 31) / 32 * 32)};
 }
 
-template <bool kVec>
+template <bool kVec, bool kWide>
 cudaError_t launch_rows(const Plan& pl, const float* x, int32_t* out,
                         int64_t n, int64_t d, const QbParams& p,
                         cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(n)), block(pl.threads);
   switch (pl.per) {
-    case 1: qboundary_rows<1, kVec><<<grid, block, 0, s>>>(x, out, d, p); break;
-    case 2: qboundary_rows<2, kVec><<<grid, block, 0, s>>>(x, out, d, p); break;
-    case 4: qboundary_rows<4, kVec><<<grid, block, 0, s>>>(x, out, d, p); break;
-    case 8: qboundary_rows<8, kVec><<<grid, block, 0, s>>>(x, out, d, p); break;
+    case 1: qboundary_rows<1, kVec, kWide><<<grid, block, 0, s>>>(x, out, d, p); break;
+    case 2: qboundary_rows<2, kVec, kWide><<<grid, block, 0, s>>>(x, out, d, p); break;
+    case 4: qboundary_rows<4, kVec, kWide><<<grid, block, 0, s>>>(x, out, d, p); break;
+    case 8: qboundary_rows<8, kVec, kWide><<<grid, block, 0, s>>>(x, out, d, p); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaSuccess;
+}
+
+template <bool kWide>
+cudaError_t launch_plan(const Plan& pl, const float* x, int32_t* out,
+                        int64_t n, int64_t d, const QbParams& p,
+                        cudaStream_t s) {
+  if (pl.path == kLooped) {
+    qboundary_looped<kWide><<<static_cast<unsigned>(n), kLoopThreads, 0, s>>>(
+        x, out, d, p);
+    return cudaSuccess;
+  }
+  return pl.path == kVector ? launch_rows<true, kWide>(pl, x, out, n, d, p, s)
+                            : launch_rows<false, kWide>(pl, x, out, n, d, p, s);
 }
 
 }  // namespace
@@ -281,15 +310,9 @@ extern "C" int qboundary_launch(const float* x, int32_t* out, int64_t n,
   if (n <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan pl = plan_of(x, out, d, *p);
-  cudaError_t err = cudaSuccess;
-  if (pl.path == kLooped) {
-    qboundary_looped<<<static_cast<unsigned>(n), kLoopThreads, 0, s>>>(
-        x, out, d, *p);
-  } else if (pl.path == kVector) {
-    err = launch_rows<true>(pl, x, out, n, d, *p, s);
-  } else {
-    err = launch_rows<false>(pl, x, out, n, d, *p, s);
-  }
+  const cudaError_t err = p->wide
+                              ? launch_plan<true>(pl, x, out, n, d, *p, s)
+                              : launch_plan<false>(pl, x, out, n, d, *p, s);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }

@@ -25,8 +25,10 @@ divide after a 32-step isqrt on one thread):
 * one correctly rounded reciprocal per row and a float64 product with one
   exact correction step per element instead of a 64-bit divide, and a
   double square root with one exact correction step instead of the
-  32-step recurrence (the bounds are proved in the source; the wrapper
-  refuses a contract beyond them).
+  32-step recurrence (the bounds are proved in the source). A unit-norm
+  contract beyond the reciprocal's bound (``int_bits + 2 * frac_bits >
+  DIV_BITS``, e.g. Q4.27 or Q1.30) takes the kernel's wide instance,
+  which divides each element exactly with one 64-bit integer divide.
 
 Float steps of the encode are separate correctly rounded intrinsics, so
 it is bit-identical to the plain version. ``ref.qboundary_model`` is the
@@ -47,7 +49,7 @@ import torch
 from repro_torch.core.contracts import PrecisionContract
 from repro_torch.core.fixedpoint import _f32_safe_bounds
 from repro_torch.kernels import _build
-from repro_torch.kernels.qboundary.ref import DIV_BITS
+from repro_torch.kernels.qboundary.ref import DIV_BITS, WIDE_BITS
 
 PATHS = {0: "scalar loads", 1: "16-byte loads", 2: "looped two-pass"}
 
@@ -58,7 +60,8 @@ class QbParams(ctypes.Structure):
     _fields_ = [("one", ctypes.c_float), ("lo", ctypes.c_float),
                 ("hi", ctypes.c_float), ("frac_bits", ctypes.c_int),
                 ("min_raw", ctypes.c_int64), ("max_raw", ctypes.c_int64),
-                ("unit_norm", ctypes.c_int), ("per_thread", ctypes.c_int)]
+                ("unit_norm", ctypes.c_int), ("per_thread", ctypes.c_int),
+                ("wide", ctypes.c_int)]
 
 
 _PARAMS: Dict[tuple, Tuple[QbParams, int]] = {}
@@ -74,15 +77,16 @@ def params(contract: PrecisionContract, unit_norm: bool,
     key = (contract, unit_norm, per_thread)
     hit = _PARAMS.get(key)
     if hit is None:
-        if unit_norm and contract.int_bits + 2 * contract.frac_bits > DIV_BITS:
+        bits = contract.int_bits + 2 * contract.frac_bits
+        if unit_norm and bits > WIDE_BITS:
             raise ValueError(
-                f"qboundary's reciprocal division is exact for int_bits + "
-                f"2 * frac_bits <= {DIV_BITS}; {contract.name} has "
-                f"{contract.int_bits + 2 * contract.frac_bits}")
+                f"qboundary divides |raw << frac_bits| in 64 bits, so "
+                f"int_bits + 2 * frac_bits <= {WIDE_BITS}; {contract.name} "
+                f"has {bits}")
         lo, hi = _f32_safe_bounds(contract)
         p = QbParams(float(contract.one), lo, hi, contract.frac_bits,
                      contract.min_raw, contract.max_raw, int(unit_norm),
-                     per_thread)
+                     per_thread, int(unit_norm and bits > DIV_BITS))
         hit = _PARAMS[key] = (p, ctypes.addressof(p))
     return hit
 

@@ -65,11 +65,11 @@ def _rows(n, d, seed):
 def _check(x, name, unit_norm):
     """The model equals the port's plain version and the JAX package's
     normalize_embedding on ``x`` (a torch tensor on the CPU); beyond the
-    reciprocal division's bound (Q32.32 with unit norm) it refuses, as the
-    kernel's wrapper does."""
+    64-bit division's bound (Q32.32 with unit norm) it refuses, as the
+    kernel's launch constants do."""
     jnp, jb, jc, _ = _jax()
     tc = tcontracts.CONTRACTS[name]
-    if unit_norm and tc.int_bits + 2 * tc.frac_bits > ref.DIV_BITS:
+    if unit_norm and tc.int_bits + 2 * tc.frac_bits > ref.WIDE_BITS:
         with pytest.raises(ValueError):
             ref.qboundary_model(x, tc, unit_norm)
         return
