@@ -25,7 +25,8 @@ names another).
 
 Layout of a store directory:
   store.json                    dim / contract / chunk_size / segment_records
-  chunks/<key:016x>.chk         content-addressed chunk store (shared)
+  chunks/<key:016x>.chk         content-addressed chunk store (or one
+                                shared across shards, ``chunks=``)
   snapshots/t_<t:020d>.vsn2     v2 manifests, named by cursor
   wal/seg_<base_t:020d>.wal     hash-chained command segments
 """
@@ -63,6 +64,7 @@ class DurableStore:
                  chunk_size: int = snapshot.DEFAULT_CHUNK_SIZE,
                  segment_records: int = 1024,
                  compaction: Optional[wal.CompactionPolicy] = None,
+                 chunks: Optional[snapshot.ChunkStore] = None,
                  device=None):
         self.device = resolve_device(device)
         self.dir = pathlib.Path(directory)
@@ -97,7 +99,11 @@ class DurableStore:
         # background checkpoint+retention thread can never unlink or rewrite
         # a segment a foreground append is extending
         self._lock = threading.RLock()
-        self.chunks = snapshot.ChunkStore(self.dir / "chunks")
+        # a shared ChunkStore (sharded stores dedup chunks across shards)
+        # is swept by its owner, never by this store's retain()
+        self._owns_chunks = chunks is None
+        self.chunks = chunks if chunks is not None \
+            else snapshot.ChunkStore(self.dir / "chunks")
         self.compaction = compaction
         self._genesis_cache: Optional[MemoryState] = None
         self.wal = wal.WriteAheadLog(self.dir / "wal", dim, contract,
@@ -285,8 +291,9 @@ class DurableStore:
     def retain(self, keep: int) -> Dict[str, int]:
         """Keep the newest ``keep`` snapshots; drop older manifests, WAL
         segments wholly below the oldest retained snapshot, and chunks no
-        surviving manifest references. (The reference's chunk store shared
-        across shards comes with the sharding slice.)"""
+        surviving manifest references. When the chunk store is shared
+        (sharded stores), the chunk sweep is the owner's job — other
+        shards' manifests may reference keys this store no longer does."""
         if keep < 1:
             raise ValueError("must retain at least one snapshot")
         with self._lock:
@@ -298,14 +305,17 @@ class DurableStore:
             segs_dropped = self.wal.drop_below(kept[0]) if kept else 0
 
             chunks_dropped = 0
-            referenced = self.referenced_chunk_keys()
-            for key in self.chunks.keys():
-                if key not in referenced:
-                    self.chunks.delete(key)
-                    chunks_dropped += 1
+            if self._owns_chunks:
+                referenced = self.referenced_chunk_keys()
+                for key in self.chunks.keys():
+                    if key not in referenced:
+                        self.chunks.delete(key)
+                        chunks_dropped += 1
             return {"snapshots_dropped": len(dropped),
                     "wal_segments_dropped": segs_dropped,
                     "chunks_dropped": chunks_dropped,
+                    # lets a coordinator prune merged records without
+                    # listing the shards' snapshot directories
                     "oldest_snapshot": kept[0] if kept else 0}
 
     def compact_wal(self, genesis: MemoryState) -> Dict[str, int]:

@@ -4,8 +4,11 @@
 so the port's plans compare equal to the reference's. ``execute_plan``
 runs the exact route (``search.exact_search``: qgemm + qtopk on the card),
 the HNSW route (``batched_hnsw_search``) or the compressed tier's coarse
-route (``search.coarse_search``: qcoarse + qtopk + qgemm on the card). The
-sharded fan-outs arrive with a later slice.
+route (``search.coarse_search``: qcoarse + qtopk + qgemm on the card).
+``sharded_query`` fans the planned route out over a sharded-layout state
+on a device list (``distributed``), ending in the one order-invariant
+``(score, id)`` merge; ``sharded_host_query`` is that fan-out with every
+shard on the state's device (the sharded engine's read path).
 """
 from __future__ import annotations
 
@@ -116,6 +119,49 @@ def execute_plan(state: MemoryState, queries_raw: torch.Tensor, k: int,
                                     use_kernel=plan.use_kernel)
     ids, dists, _ = batched_hnsw_search(state, queries_raw, k, ef=plan.ef)
     return ids, dists
+
+
+# --------------------------------------------------------------------------- #
+# shard fan-out
+# --------------------------------------------------------------------------- #
+
+
+def sharded_query(devices, state: MemoryState, queries_raw: torch.Tensor,
+                  k: int, plan: QueryPlan, *, metric: str = search.METRIC_L2,
+                  tables=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The planned route fanned out across a device list, one shard per
+    device (``distributed``), ending in the one merge.
+
+    Exact route: bit-identical to the single-kernel scan on the same live
+    content. HNSW route: deterministic for a fixed shard count; equal to
+    the flat graph whenever every beam is exhaustive over its slice.
+    Coarse route: equal to flat exact whenever every shard's candidates
+    cover its slice; ``tables`` carries per-shard code tables, absent,
+    each shard builds its table from its slice. (The reference's mesh
+    fan-out has no coarse path and runs a coarse plan as HNSW; its host
+    fan-out, ``sharded_host_query``, runs it as here.)"""
+    from repro_torch.core import distributed  # distributed imports us lazily
+
+    if plan.route == ROUTE_EXACT:
+        return distributed.distributed_search(
+            devices, state, queries_raw, k, metric=metric,
+            use_kernel=plan.use_kernel)
+    if plan.route == ROUTE_COARSE:
+        return distributed.distributed_coarse_search(
+            devices, state, queries_raw, k, ef_coarse=plan.ef_coarse,
+            metric=metric, use_kernel=plan.use_kernel, tables=tables)
+    return distributed.distributed_hnsw_search(devices, state, queries_raw,
+                                               k, ef=plan.ef)
+
+
+def sharded_host_query(state: MemoryState, n_shards: int,
+                       queries_raw: torch.Tensor, k: int, plan: QueryPlan, *,
+                       metric: str = search.METRIC_L2, tables=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sharded_query`` with every shard on the state's own device: the
+    sharded engine's read path."""
+    return sharded_query([state.device] * n_shards, state, queries_raw, k,
+                         plan, metric=metric, tables=tables)
 
 
 def retrieval_hash(ids, scores) -> int:

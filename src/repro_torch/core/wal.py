@@ -693,11 +693,12 @@ class GroupCommitWriter:
     group — the high-QPS ingest path (DESIGN.md §6).
 
     ``sink`` is anything with ``append_many(logs) -> t`` and a durable
-    cursor ``t`` that advances one per command (``WriteAheadLog``,
-    ``durability.DurableStore``); the reference's hooks for sharded sinks
-    (routed shares, padded advances) come with the sharding slice.
-    ``submit`` buffers a log and flushes when the policy's batch or delay
-    bound is hit; ``flush`` forces the pending group durable. With
+    cursor ``t`` (``WriteAheadLog``, ``durability.DurableStore``,
+    ``shard_wal.ShardedDurableStore``). A sink with ``planned_advance``
+    (sharded) advances by each batch's NOP-padded common share length, not
+    its command count; one with ``append_many_routed`` takes batches the
+    caller already routed. ``submit`` buffers a log and flushes when the
+    policy's batch or delay bound is hit; ``flush`` forces the pending group durable. With
     ``policy.timer_flush`` a daemon thread flushes when the oldest pending
     command's deadline passes; submits, foreground flushes and timer
     flushes serialize on one lock, so the commit order is the submit order.
@@ -713,6 +714,8 @@ class GroupCommitWriter:
         # every flush — foreground, policy-driven or timer-driven
         self.pre_flush = pre_flush
         self._pending: List[CommandLog] = []
+        self._routed: List[Optional[CommandLog]] = []  # pre-routed shares
+        self._advance: List[int] = []  # cursor advance each log will cause
         self._pending_n = 0
         self._oldest: Optional[float] = None
         self.groups = 0        # flushes that wrote something
@@ -734,16 +737,32 @@ class GroupCommitWriter:
 
     @property
     def target_t(self) -> int:
-        """The cursor the sink will reach once pending commands flush."""
+        """The cursor the sink will reach once pending commands flush:
+        exact for every sink, since a sharded sink's advance per batch is
+        asked of it (``planned_advance``)."""
         with self._cv:
-            return self.sink.t + self._pending_n
+            return self.sink.t + sum(self._advance)
 
-    def submit(self, log: CommandLog) -> int:
+    def _sink_advance(self, log: CommandLog) -> int:
+        fn = getattr(self.sink, "planned_advance", None)
+        return fn(log) if fn is not None else len(log)
+
+    def submit(self, log: CommandLog, *,
+               routed: Optional[CommandLog] = None) -> int:
         """Buffer a log for the next group commit; returns ``target_t``.
-        The commands are NOT durable until the group flushes."""
+        The commands are NOT durable until the group flushes. A caller that
+        already routed the log for a sharded sink passes its ``[n_shards,
+        L]`` ``routed`` shares, so neither the advance nor the sink
+        re-routes."""
         with self._cv:
             if len(log):
                 self._pending.append(log)
+                self._routed.append(routed)
+                # a routed batch's padded common share length IS its
+                # global-cursor advance
+                self._advance.append(
+                    int(routed.opcode.shape[1]) if routed is not None
+                    else self._sink_advance(log))
                 self._pending_n += len(log)
                 self.submitted += len(log)
                 if self._oldest is None:
@@ -754,7 +773,7 @@ class GroupCommitWriter:
                         and time.monotonic() - self._oldest
                         >= self.policy.max_delay_s)):
                 self._flush_locked()
-            return self.sink.t + self._pending_n
+            return self.sink.t + sum(self._advance)
 
     def flush(self) -> int:
         """Make every pending command durable (one group commit); returns
@@ -773,12 +792,19 @@ class GroupCommitWriter:
             if self.pre_flush is not None:
                 self.pre_flush()
             t0 = self.sink.t
+            append_routed = getattr(self.sink, "append_many_routed", None)
             try:
-                self.sink.append_many(self._pending)
+                if (append_routed is not None
+                        and all(r is not None for r in self._routed)):
+                    append_routed(self._routed)
+                else:
+                    self.sink.append_many(self._pending)
             except BaseException:
                 self._drop_landed(self.sink.t - t0)
                 raise
             self._pending = []
+            self._routed = []
+            self._advance = []
             self._pending_n = 0
             self._oldest = None
             self.groups += 1
@@ -818,17 +844,30 @@ class GroupCommitWriter:
             self._timer = None
 
     def _drop_landed(self, landed: int) -> None:
-        """Remove the ``landed`` commands a failed flush already made
-        durable (the sink advances one per command), slicing a mid-log
-        remainder off for retry: durable work must never repeat."""
+        """Remove what a failed flush already made durable, in the sink's
+        cursor units. A single-host sink advances one per command, so a
+        mid-log remainder is sliced off for retry (and re-routed, should it
+        reach a sharded sink). A sink with ``planned_advance`` advances in
+        padded batch units: whole batches whose advance landed are popped,
+        and a batch the failure cut mid-way is popped too — its durable
+        prefix is already on some shards (the store refuses appends until
+        ``recover()``), so re-queueing any of it could only duplicate
+        durable commands. Never-acked work may be dropped; durable work
+        must never repeat."""
+        batch_units = getattr(self.sink, "planned_advance", None) is not None
         while landed > 0 and self._pending:
             log = self._pending[0]
-            if len(log) <= landed:
-                landed -= len(log)
+            if batch_units or len(log) <= landed:
+                adv = self._advance[0] if batch_units else len(log)
                 self._pending_n -= len(log)
                 self._pending.pop(0)
+                self._routed.pop(0)
+                self._advance.pop(0)
+                landed = landed - adv if landed >= adv else 0
             else:
                 self._pending[0] = log.slice(landed, len(log))
+                self._routed[0] = None  # a sliced log needs re-routing
+                self._advance[0] = self._sink_advance(self._pending[0])
                 self._pending_n -= landed
                 landed = 0
         if not self._pending:

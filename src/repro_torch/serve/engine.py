@@ -1,6 +1,6 @@
-"""Memory-augmented serving engine: the flat substrate, in memory or durable.
+"""Memory-augmented serving engine: flat or sharded, in memory or durable.
 
-The port of ``repro.serve.engine`` for one shard, no replicas and no
+The port of ``repro.serve.engine`` without replicas and without the
 network: the paper's §5.3 boundary, the audit trail and durability.
 
   embedding (float32) ──boundary.normalize──▶ INSERT log ──bulk_apply──▶ state
@@ -26,6 +26,20 @@ and ``compaction`` age and fold the history; ``recover()`` and
 engine also keeps a durable doc side table (``docs.sdt``) of LM token
 prefixes; this engine has no tokens, so the table waits for the LM slice.
 It is a cache, not state, so no hash depends on it.
+
+Two serving modes share the class, as in the reference (DESIGN.md §7):
+
+* ``ServeConfig(shards=1)``: a flat MemoryState, ``DurableStore``
+  durability, planner-routed reads.
+* ``ServeConfig(shards=N)``: a shard-major sharded-layout MemoryState
+  (``distributed.init_sharded_host``; ``capacity`` is the total, split
+  evenly), each batch routed once (``distributed.route_commands``) for
+  the per-shard audit logs, ``shard_wal.bulk_apply_sharded`` and the
+  store; durability through a ``ShardedDurableStore``; reads fanned out
+  per shard and merged (``query.sharded_host_query``), with one code table
+  per shard. Fed the same embeddings, both modes allocate the same ids
+  and report one ``memory_hash()`` and one exact-route
+  ``retrieval_hash()``; ``state_hash()`` is the within-layout hash.
 """
 from __future__ import annotations
 
@@ -37,20 +51,22 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import (boundary, codes, commands, hashing, hnsw,
-                              machine, query, snapshot)
+from repro_torch.core import (boundary, codes, commands, distributed,
+                              hashing, hnsw, machine, query, shard_wal,
+                              snapshot)
 from repro_torch.core import wal as wal_lib
 from repro_torch.core.contracts import DEFAULT_CONTRACT, PrecisionContract
 from repro_torch.core.durability import DurableStore
+from repro_torch.core.shard_wal import ShardedDurableStore
 from repro_torch.core.state import MemoryState, init_state, resolve_device
 
 
 @dataclasses.dataclass
 class ServeConfig:
-    """The reference's field names. This slice serves one flat shard, in
-    memory or durable, with its compressed tier (``ef_coarse``,
-    ``route="coarse"``); the sharded, replicated and networked fields raise
-    when set."""
+    """The reference's field names. The engine serves one flat shard or
+    ``shards`` of them, in memory or durable, with the compressed tier
+    (``ef_coarse``, ``route="coarse"``); the replicated and networked
+    fields raise when set."""
     capacity: int = 4096
     retrieve_k: int = 4
     max_new_tokens: int = 32
@@ -75,8 +91,8 @@ class ServeConfig:
 
 
 _NOT_SERVED = {  # field: (value meaning "unset", the slice that serves it)
-    "shards": (1, "sharding"), "hosts": (None, "network"),
-    "replicas": (0, "replication"), "follow": (None, "replication"),
+    "hosts": (None, "network"), "replicas": (0, "replication"),
+    "follow": (None, "replication"),
 }
 
 
@@ -86,36 +102,61 @@ class MemoryAugmentedEngine:
             if getattr(serve_cfg, name) != unset:
                 raise NotImplementedError(
                     f"ServeConfig.{name} is served by the {slice_name} slice "
-                    f"of the port, not by the flat engine")
+                    f"of the port, not by this engine")
+        n = serve_cfg.shards
+        if n < 1:
+            raise ValueError(f"shards must be >= 1, got {n}")
+        if serve_cfg.capacity % n:
+            raise ValueError(
+                f"capacity {serve_cfg.capacity} must divide evenly across "
+                f"{n} shards")
         self.device = resolve_device(device)
         self.d_model = d_model
         self.sc = serve_cfg
-        self.memory: MemoryState = init_state(
-            serve_cfg.capacity, d_model, contract=serve_cfg.contract,
-            device=self.device)
+        self.n_shards = n
+        self._layout_sharded = n > 1
+        if not self._layout_sharded:
+            self.memory: MemoryState = init_state(
+                serve_cfg.capacity, d_model, contract=serve_cfg.contract,
+                device=self.device)
+        else:
+            self.memory = distributed.init_sharded_host(
+                n, serve_cfg.capacity // n, d_model,
+                contract=serve_cfg.contract, device=self.device)
+        # the audit trail: the global command log and, in sharded mode, its
+        # routed per-shard twin (what the per-shard WALs hold; after a
+        # sharded recover only the per-shard logs are reconstructible)
         self.log = commands.empty_log(d_model, serve_cfg.contract,
                                       device=self.device)
+        self._shard_logs: List[commands.CommandLog] = [
+            self._empty_log() for _ in range(n)]
         self._next_id = 0
         self.last_plan: Optional[query.QueryPlan] = None
         self.graph_gen = 0
         self.relink_ts: List[int] = []
         self._deletes_since_relink = 0
         self._cmds_since_relink_check = 0
-        # compressed tier (DESIGN.md §10): built on the first coarse read,
-        # then refreshed after every insert batch and dropped on delete;
-        # always equal to codes.build(self.memory)
-        self._code_table: Optional[codes.CodeTable] = None
+        # compressed tier (DESIGN.md §10): one code table per shard slice
+        # (one in flat mode), built on the first coarse read, then refreshed
+        # after every insert batch and dropped on delete; always equal to
+        # codes.build of each slice
+        self._code_tables: Optional[List[codes.CodeTable]] = None
 
-        self.durable: Optional[DurableStore] = None
+        self.durable = None  # DurableStore | ShardedDurableStore | None
         self._group: Optional[wal_lib.GroupCommitWriter] = None
         self._ckpt_thread: Optional[threading.Thread] = None
         self._ckpt_error: Optional[BaseException] = None
         self._last_ckpt_t = 0
         self._closed = False
         if serve_cfg.durable_dir is not None:
-            self.durable = DurableStore(
-                serve_cfg.durable_dir, self.memory,
-                compaction=serve_cfg.compaction, device=self.device)
+            if not self._layout_sharded:
+                self.durable = DurableStore(
+                    serve_cfg.durable_dir, self.memory,
+                    compaction=serve_cfg.compaction, device=self.device)
+            else:
+                self.durable = ShardedDurableStore(
+                    serve_cfg.durable_dir, self.memory, n_shards=n,
+                    compaction=serve_cfg.compaction, device=self.device)
             if serve_cfg.group_commit is not None:
                 self._group = wal_lib.GroupCommitWriter(
                     self.durable, serve_cfg.group_commit)
@@ -132,11 +173,27 @@ class MemoryAugmentedEngine:
             x = torch.from_numpy(np.array(x, dtype=np.float32))
         return x.to(device=self.device, dtype=torch.float32)
 
+    def _empty_log(self) -> commands.CommandLog:
+        return commands.empty_log(self.d_model, self.sc.contract,
+                                  device=self.device)
+
+    @property
+    def _code_table(self) -> Optional[codes.CodeTable]:
+        """The flat engine's code table; a sharded engine keeps one per
+        shard in ``_code_tables`` and refuses this single-table view."""
+        if self._layout_sharded:
+            raise ValueError("a sharded engine has one code table per "
+                             "shard: read _code_tables")
+        return None if self._code_tables is None else self._code_tables[0]
+
     def _cursor(self) -> int:
-        return int(self.memory.version)
+        """The applied-command cursor: flat ``version``, or the common
+        per-shard padded cursor (equal at the batch boundaries the engine
+        operates at)."""
+        return int(self.memory.version.reshape(-1)[0])
 
     def live_count(self) -> int:
-        return int(self.memory.count)
+        return shard_wal.live_count(self.memory)
 
     # ------------------------------------------------------------------ #
     # WRITE path
@@ -154,9 +211,7 @@ class MemoryAugmentedEngine:
                            device=self.device)
         self._next_id += n
         batch_log = commands.insert_batch(ids, raw, self.sc.contract)
-        self._make_durable(batch_log)
-        self.log = self.log.concat(batch_log)
-        self.memory = machine.bulk_apply(self.memory, batch_log)
+        self._apply_batch(batch_log)
         self._refresh_code_tables(ids)
         self._cmds_since_relink_check += n
         self._maybe_relink()
@@ -171,51 +226,77 @@ class MemoryAugmentedEngine:
         ids = torch.tensor(sorted(int(i) for i in doc_ids), dtype=torch.int64,
                            device=self.device)
         batch_log = commands.delete_batch(ids, self.d_model, self.sc.contract)
-        self._make_durable(batch_log)
-        self.log = self.log.concat(batch_log)
         before = self.live_count()
-        self.memory = machine.bulk_apply(self.memory, batch_log)
+        self._apply_batch(batch_log)
         removed = before - self.live_count()
         # deletes touch layout-dependent slots; the lazy rebuild is a pure
         # function of the live rows, so it is always bit-identical
-        self._code_table = None
+        self._code_tables = None
         self._deletes_since_relink += removed
         self._cmds_since_relink_check += len(batch_log)
         self._maybe_relink()
         self._maybe_checkpoint()
         return removed
 
-    def _make_durable(self, batch_log: commands.CommandLog) -> None:
-        """WAL-first: the commands are durable before their effects are
+    def _apply_batch(self, batch_log: commands.CommandLog) -> None:
+        """Make one batch durable, record it on the audit logs and apply it.
+
+        WAL-first: the commands are durable before their effects are
         visible, so a crash can lose at most un-acked work. Under group
         commit the batch buffers toward one fsync per group and must not be
         readable until then: the read path's ``flush()`` barrier restores
-        WAL-first ordering at the moment of first observation."""
+        WAL-first ordering at the moment of first observation. In sharded
+        mode the batch is routed once, for the store, the per-shard audit
+        logs and the apply."""
+        routed = None if not self._layout_sharded else \
+            distributed.route_commands(batch_log, self.n_shards)
         if self._group is not None:
-            self._group.submit(batch_log)
+            self._group.submit(batch_log, routed=routed)
         elif self.durable is not None:
-            self.durable.append(batch_log)
+            if routed is None:
+                self.durable.append(batch_log)
+            else:
+                self.durable.append(batch_log, routed=routed)
+        self.log = self.log.concat(batch_log)
+        if routed is None:
+            self.memory = machine.bulk_apply(self.memory, batch_log)
+            return
+        for s in range(self.n_shards):
+            self._shard_logs[s] = self._shard_logs[s].concat(
+                distributed.share(routed, s))
+        self.memory = shard_wal.bulk_apply_sharded(
+            self.memory, batch_log, self.n_shards, routed=routed)
 
     # ------------------------------------------------------------------ #
     # compressed tier: the code table (DESIGN.md §10)
     # ------------------------------------------------------------------ #
 
+    def _memory_slices(self) -> List[MemoryState]:
+        if not self._layout_sharded:
+            return [self.memory]
+        return [distributed.shard_slice(self.memory, s, self.n_shards)
+                for s in range(self.n_shards)]
+
     def _ensure_code_tables(self) -> None:
-        """Build the code table from the live state if there is none."""
-        if self._code_table is None:
-            self._code_table = codes.build(self.memory)
+        """Build the per-slice code tables from the live state if there are
+        none."""
+        if self._code_tables is None:
+            self._code_tables = [codes.build(sl)
+                                 for sl in self._memory_slices()]
 
     def _refresh_code_tables(self, inserted_ids: torch.Tensor) -> None:
-        """After an insert batch, once a table exists: re-encode the slots
+        """After an insert batch, once tables exist: re-encode the slots
         that hold this batch's ids (engine writes are fresh INSERTs, so
         those are exactly the touched slots); a param drift rebuilds
         inside ``codes.refresh``."""
-        if self._code_table is None:
+        if self._code_tables is None:
             return
-        touched = torch.nonzero(torch.isin(self.memory.ids, inserted_ids)
-                                & self.memory.valid).reshape(-1)
-        self._code_table = codes.refresh(self._code_table, self.memory,
-                                         touched)
+        tables = []
+        for sl, tbl in zip(self._memory_slices(), self._code_tables):
+            touched = torch.nonzero(torch.isin(sl.ids, inserted_ids)
+                                    & sl.valid).reshape(-1)
+            tables.append(codes.refresh(tbl, sl, touched))
+        self._code_tables = tables
 
     def _coarse_enabled(self) -> bool:
         """Whether the engine serves the compressed tier (the reference's
@@ -242,11 +323,16 @@ class MemoryAugmentedEngine:
         ``relink_ts`` so ``replay_log_fresh`` can reproduce it. The code
         table stays: the graph is not in it."""
         t = self._cursor()
-        self.memory = hnsw.relink(self.memory)
+        self.memory = self._relinked(self.memory)
         self.relink_ts.append(t)
         self.graph_gen = len(self.relink_ts)
         self._deletes_since_relink = 0
         return t
+
+    def _relinked(self, state: MemoryState) -> MemoryState:
+        if not self._layout_sharded:
+            return hnsw.relink(state)
+        return shard_wal.relink_sharded(state, self.n_shards)
 
     # ------------------------------------------------------------------ #
     # READ path
@@ -268,8 +354,13 @@ class MemoryAugmentedEngine:
         self.last_plan = plan
         if plan.route == query.ROUTE_COARSE:
             self._ensure_code_tables()
-        ids, scores = query.execute_plan(self.memory, q_raw, k, plan,
-                                         codes=self._code_table)
+        if not self._layout_sharded:
+            ids, scores = query.execute_plan(self.memory, q_raw, k, plan,
+                                             codes=self._code_table)
+        else:
+            ids, scores = query.sharded_host_query(
+                self.memory, self.n_shards, q_raw, k, plan,
+                tables=self._code_tables)
         return ids.cpu().numpy(), scores.cpu().numpy()
 
     def retrieval_hash(self, query_embeddings, k: Optional[int] = None) -> int:
@@ -309,14 +400,16 @@ class MemoryAugmentedEngine:
             err, self._ckpt_error = self._ckpt_error, None
             raise RuntimeError("background checkpoint failed") from err
 
-    def _require_durable(self) -> DurableStore:
+    def _require_durable(self):
         if self.durable is None:
             raise RuntimeError("no durable_dir configured")
         return self.durable
 
     def checkpoint(self) -> Dict[str, int]:
-        """Synchronously cut an incremental snapshot at the current cursor;
-        returns the snapshot stats (with retention's when configured)."""
+        """Synchronously cut an incremental snapshot at the current cursor
+        (per-shard v2 snapshots + the merged whole-state-hash record in
+        sharded mode); returns the snapshot stats (with retention's when
+        configured)."""
         store = self._require_durable()
         self.flush()  # a snapshot may only cover durable commands
         self.wait_durable()
@@ -350,38 +443,51 @@ class MemoryAugmentedEngine:
         self._ckpt_thread.start()
 
     def _checkpoint_code_tables(self) -> None:
-        """Cut the code table's content-addressed manifest beside the state
-        snapshots (``<durable_dir>/codes/``), keeping only the newest one
-        and the chunks it references. Recovery does not read it (the table
-        is rebuilt from the recovered state); it is the audit / warm-start
-        artifact, equal bit for bit to the rebuild."""
+        """Cut each code table's content-addressed manifest beside the
+        state snapshots (``<durable_dir>/codes/``, one per shard), keeping
+        only the newest set and the chunks it references. Recovery does not
+        read them (the tables are rebuilt from the recovered state); they
+        are the audit / warm-start artifact, equal bit for bit to the
+        rebuild."""
         if self.sc.durable_dir is None or not self._coarse_enabled():
             return
         self._ensure_code_tables()
         t = self._cursor()
         cdir = pathlib.Path(self.sc.durable_dir) / "codes"
         store = snapshot.ChunkStore(cdir / "chunks")
-        manifest, _ = codes.snapshot_table_v2(self._code_table, t, store)
-        path = cdir / f"codes_{0:04d}_t{t:020d}.mft"
-        tmp = path.with_suffix(".tmp")
-        tmp.write_bytes(manifest)
-        tmp.replace(path)
-        keep_keys = set(codes.table_manifest_chunk_keys(manifest))
+        keep_keys = set()
+        for s, tbl in enumerate(self._code_tables):
+            manifest, _ = codes.snapshot_table_v2(tbl, t, store)
+            path = cdir / f"codes_{s:04d}_t{t:020d}.mft"
+            tmp = path.with_suffix(".tmp")
+            tmp.write_bytes(manifest)
+            tmp.replace(path)
+            keep_keys.update(codes.table_manifest_chunk_keys(manifest))
         for old in cdir.glob("codes_*.mft"):
-            if old != path:
+            if not old.name.endswith(f"t{t:020d}.mft"):
                 old.unlink()
         for key in store.keys():
             if key not in keep_keys:
                 store.delete(key)
 
     def _reload_audit_logs(self, t: int) -> None:
-        """Rebuild the in-memory audit trail from the durable WAL after
-        recover/rollback, if retention kept the full history."""
+        """Rebuild the in-memory audit trail from the durable WAL(s) after
+        recover/rollback, if retention kept the full history. In sharded
+        mode the global interleaving is not durable (per-shard WALs only);
+        the per-shard logs are the reconstructible audit trail."""
+        if not self._layout_sharded:
+            try:
+                self.log = self.durable.wal.read_range(0, t,
+                                                       device=self.device)
+            except ValueError:
+                self.log = self._empty_log()
+            return
+        self.log = self._empty_log()
         try:
-            self.log = self.durable.wal.read_range(0, t, device=self.device)
+            self._shard_logs = self.durable.shard_logs(0, t)
         except ValueError:
-            self.log = commands.empty_log(self.d_model, self.sc.contract,
-                                          device=self.device)
+            self._shard_logs = [self._empty_log()
+                                for _ in range(self.n_shards)]
 
     def _reload_serving_caches(self) -> None:
         """Next-id allocation from the live rows of the recovered state."""
@@ -397,8 +503,8 @@ class MemoryAugmentedEngine:
         self.wait_durable()
         state, h, t = store.recover()
         self.memory = state
-        self._code_table = None  # rebuilt from the recovered state on the
-        self._last_ckpt_t = t    # first coarse read (pure function of it)
+        self._code_tables = None  # rebuilt from the recovered state on the
+        self._last_ckpt_t = t     # first coarse read (pure function of it)
         self._reload_audit_logs(t)
         self._reload_serving_caches()
         return t, self._canonicalize_graph(t, h)
@@ -413,7 +519,7 @@ class MemoryAugmentedEngine:
         store.rollback_to(t)
         state, h = store.restore_at(t)
         self.memory = state
-        self._code_table = None
+        self._code_tables = None
         self._last_ckpt_t = t
         self._reload_audit_logs(t)
         self._reload_serving_caches()
@@ -431,7 +537,7 @@ class MemoryAugmentedEngine:
             self.relink_ts = []
             self.graph_gen = 0
             return h
-        self.memory = hnsw.relink(self.memory)
+        self.memory = self._relinked(self.memory)
         self.relink_ts = [t]
         self.graph_gen = 1
         return self.state_hash()
@@ -441,7 +547,8 @@ class MemoryAugmentedEngine:
     # ------------------------------------------------------------------ #
 
     def memory_hash(self) -> int:
-        """The layout-invariant live-content hash."""
+        """The layout-invariant live-content hash: flat and sharded engines
+        fed the same documents report the same value."""
         return hashing.content_hash(self.memory)
 
     def state_hash(self) -> int:
@@ -449,19 +556,35 @@ class MemoryAugmentedEngine:
         return hashing.hash_state_device(self.memory)
 
     def snapshot_bytes(self) -> bytes:
-        """The state as one v1 snapshot blob (``snapshot.restore_bytes``)."""
+        """The flat state as one v1 snapshot blob
+        (``snapshot.restore_bytes``)."""
+        if self._layout_sharded:
+            raise ValueError(
+                "sharded engines snapshot through checkpoint() (per-shard "
+                "v2 snapshots + merged hash record), not one flat blob")
         return snapshot.snapshot_bytes(self.memory)
 
     def replay_log_fresh(self) -> int:
         """Re-apply the audit log to S_0 with the one-command-at-a-time
         ``machine.replay``, interleaving ``hnsw.relink`` at the recorded
-        cursors; must equal ``state_hash()``."""
-        st = init_state(self.sc.capacity, self.d_model,
-                        contract=self.sc.contract, device=self.device)
-        pos = 0
-        for t in self.relink_ts:
-            st = machine.replay(st, self.log.slice(pos, t))
-            st = hnsw.relink(st)
-            pos = t
-        st = machine.replay(st, self.log.slice(pos, len(self.log)))
-        return hashing.hash_state_device(st)
+        cursors; must equal ``state_hash()``. In sharded mode each shard's
+        (routed, padded) log replays on its genesis slice, relinked at the
+        same cursors (a per-shard cursor is the per-shard padded offset),
+        and the merge is hashed."""
+        def replay(st, log):
+            pos = 0
+            for t in self.relink_ts:
+                st = hnsw.relink(machine.replay(st, log.slice(pos, t)))
+                pos = t
+            return machine.replay(st, log.slice(pos, len(log)))
+
+        if not self._layout_sharded:
+            st = init_state(self.sc.capacity, self.d_model,
+                            contract=self.sc.contract, device=self.device)
+            return hashing.hash_state_device(replay(st, self.log))
+        genesis = distributed.init_sharded_host(
+            self.n_shards, self.sc.capacity // self.n_shards, self.d_model,
+            contract=self.sc.contract, device=self.device)
+        return hashing.hash_state_device(distributed.merge_shards(
+            [replay(distributed.shard_slice(genesis, s, self.n_shards),
+                    self._shard_logs[s]) for s in range(self.n_shards)]))

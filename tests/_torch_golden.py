@@ -10,6 +10,10 @@ order), then ``n_delete`` distinct ids to delete; INSERT ids 0..n-1 as one
 canonical batch through ``bulk_apply``, the deletes as one batch, then
 k-NN on the exact route, the HNSW route and the coarse route (the code
 table of the final state, at ``ef_coarse`` and at ``ef_coarse_cover``).
+The sharded check (``check_sharded``) routes the same batches to
+``n_shards`` shards (``scripts/gen_golden_torch_sharded.py`` →
+``tests/fixtures/torch_port_sharded/expected.json``, key ``golden``) and
+reads through the sharded twins, with per-shard code tables.
 """
 from __future__ import annotations
 
@@ -20,12 +24,14 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.core import (boundary, codes, commands, hashing, machine,
-                              query, search)
+from repro_torch.core import (boundary, codes, commands, distributed,
+                              hashing, machine, query, search, shard_wal)
 from repro_torch.core.state import init_state
 
 FIXTURE = (pathlib.Path(__file__).resolve().parent / "fixtures"
            / "torch_port_golden.json")
+SHARDED_FIXTURE = (pathlib.Path(__file__).resolve().parent / "fixtures"
+                   / "torch_port_sharded" / "expected.json")
 
 
 def make_inputs(seed: int, n_insert: int, dim: int, n_query: int,
@@ -78,4 +84,44 @@ def check(device, path=FIXTURE) -> Dict:
     if got != want:
         raise AssertionError(f"golden mismatch on {device}: got {got}, "
                              f"fixture {want}")
+    return got
+
+
+def run_sharded(spec: Dict, device) -> Dict:
+    """The port's sharded hashes for ``spec`` on ``device``: the recipe's
+    batches routed to ``spec["n_shards"]`` shards."""
+    emb, queries, dead = make_inputs(spec["seed"], spec["n_insert"],
+                                     spec["dim"], spec["n_query"],
+                                     spec["n_delete"])
+    dev = torch.device(device)
+    ns = spec["n_shards"]
+    st = distributed.init_sharded_host(ns, spec["capacity"] // ns,
+                                       spec["dim"], device=dev)
+    raw = boundary.normalize_embedding(torch.from_numpy(emb).to(dev))
+    ids = torch.arange(spec["n_insert"], dtype=torch.int64, device=dev)
+    st = shard_wal.bulk_apply_sharded(st, commands.insert_batch(ids, raw), ns)
+    st = shard_wal.bulk_apply_sharded(st, commands.delete_batch(
+        torch.from_numpy(dead).to(dev), spec["dim"]), ns)
+    q = boundary.admit_query(torch.from_numpy(queries).to(dev))
+    k = spec["k"]
+    routes = {
+        "exact": shard_wal.exact_search_sharded(st, ns, q, k),
+        "hnsw": shard_wal.hnsw_search_sharded(st, ns, q, k, ef=spec["ef"]),
+        "coarse": shard_wal.coarse_search_sharded(
+            st, ns, q, k, ef_coarse=spec["ef_coarse"])}
+    return {"hash_pytree": hashing.hash_state_device(st),
+            "content_hash": hashing.content_hash(st),
+            "retrieval_hash": {name: query.retrieval_hash(*ans)
+                               for name, ans in routes.items()}}
+
+
+def check_sharded(device, path=SHARDED_FIXTURE) -> Dict:
+    """Run the sharded recipe and raise unless every hash equals the
+    fixture's."""
+    spec = json.loads(pathlib.Path(path).read_text())["golden"]
+    got = run_sharded(spec, device)
+    want = {key: spec[key] for key in got}
+    if got != want:
+        raise AssertionError(f"sharded golden mismatch on {device}: got "
+                             f"{got}, fixture {want}")
     return got

@@ -73,7 +73,7 @@ def test_engine_retrieval_matches(pair, route):
 
 
 def test_engine_refuses_unserved_modes_and_silent_cpu():
-    for kw in (dict(shards=2), dict(hosts=["localhost:1"]),
+    for kw in (dict(follow=object()), dict(hosts=["localhost:1"]),
                dict(replicas=1)):
         with pytest.raises(NotImplementedError):
             tengine.MemoryAugmentedEngine(8, tengine.ServeConfig(**kw),

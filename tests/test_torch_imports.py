@@ -36,6 +36,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert res.returncode == 0, res.stdout + res.stderr
     assert len(mods) >= 20
     assert {"repro_torch.core.codes", "repro_torch.core.snapshot",
+            "repro_torch.core.distributed", "repro_torch.core.shard_wal",
             "repro_torch.kernels.qcoarse.ops",
             "repro_torch.kernels.qcoarse.kernel"} <= set(mods)
 
