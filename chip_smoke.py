@@ -52,9 +52,9 @@ Phases (any failure raises and exits non-zero):
    one warm coarse batch are then broken into stages with CUDA events
    (the exact one also with its boundary: the copy to the card and
    ``admit_query``). Then the refreshed
-   table equals ``codes.build`` of the state, ``replay_log_fresh() ==
-   state_hash()``, and the card's retrievals (all three routes) and code
-   table equal the same state's on the CPU through the plain versions;
+   table equals ``codes.build`` of the state and ``replay_log_fresh() ==
+   state_hash()`` (the card against the CPU on one state is phase 6's
+   check, cut here to keep the run inside its time);
 4. golden — the hashes the JAX reference wrote at d = 2304
    (``tests/fixtures/torch_port_golden.json``, code table and coarse
    routes included) reproduce on the card; the reference's golden v1 and
@@ -102,7 +102,31 @@ Phases (any failure raises and exits non-zero):
    (``SIDE_CAPACITY`` rows, group commit, checkpoints) recovers its state
    and retrieval hashes and its replay; the JAX-written sharded fixtures
    (``tests/fixtures/torch_port_sharded/``: store, VLRS manifest, the
-   golden recipe on 4 shards) reproduce on the card.
+   golden recipe on 4 shards) reproduce on the card;
+7. network — the 30 golden wire frames (``tests/fixtures/golden_wire/``)
+   decode with the port's protocol and re-encode to the same bytes; then
+   ``SHARDS`` shard hosts (``net.ShardHost`` on the card behind
+   ``net.ShardServer`` on 127.0.0.1 ephemeral ports, in this process so
+   their launches count, ``SHARD_ROWS`` rows each) serve
+   ``ServeConfig(hosts=[...], replicas=1, follow=FollowerPolicy())``:
+   phase 3's first 2048 documents, whose ``memory_hash`` and exact
+   ``retrieval_hash`` must equal phase 3's record; phase 6's 1 % deleted
+   (no re-link: the hosts keep the replay graph); over the wire (the pool
+   detached) the exact and coarse reads of phase 6's first query batch
+   must equal phase 6's, HNSW phase 6's read before its re-link, and
+   coverage the exact read; ``sync_replicas()`` must return 0 (the
+   commands the followers had left, per second) and replica-served reads
+   equal the wire reads; launch counts are zeroed before the ingest and
+   read after the replica reads; transport retries and the faults the
+   replicas rode through are logged and counted; a checkpoint over the
+   wire must write the merged record of the engine's state hash.
+   Then a ``python -m repro_torch.net.server`` process on the card
+   (``SIDE_CAPACITY`` rows) with two durable replicas at staggered
+   cursors is SIGKILLed; one ``FailureDetector.poll()`` (a lease of one
+   miss) promotes the replica with the max proven prefix at epoch 1, whose
+   ``state_hash`` must equal the replica's proof, the epoch-0 writer must
+   be refused (``StaleEpochError``) and the promoted host, behind a new
+   server, must answer the exact and coarse reads with the replica's bits.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs the repository's ``src/``
@@ -113,6 +137,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import os
 import pathlib
 import shutil
 import statistics
@@ -161,6 +186,12 @@ SHARD_EXACT_BATCHES = 20
 SHARD_HNSW_BATCHES = 3
 SHARD_COARSE_BATCHES = 20
 SHARD_CHECKPOINT_EVERY = 256  # per-shard cursor: about two batches of 512
+# phase 7: the networked engine reads NET_BATCHES warm batches per route
+# over the wire and from its replicas; the failover ingests batches of
+# FAIL_BATCH documents into a SIDE_CAPACITY-row shard-server process
+NET_BATCHES = {"exact": 10, "hnsw": 2, "coarse": 10}
+FAIL_BATCH = 128
+CARD = ["card not read"]  # nvidia-smi's name and power limit, for reports
 
 REPLACES = {
     "qboundary": "src/repro/kernels/qboundary/kernel.py:29",
@@ -842,7 +873,7 @@ def ptxas_report(name: str):
 
 def run_engine(torch, dev, n_docs: int, seed: int):
     from repro_torch import kernels
-    from repro_torch.core import boundary, codes, query, search
+    from repro_torch.core import codes, query, search
     from repro_torch.serve.engine import MemoryAugmentedEngine, ServeConfig
 
     eng = MemoryAugmentedEngine(DIM, ServeConfig(
@@ -969,31 +1000,13 @@ def run_engine(torch, dev, n_docs: int, seed: int):
     if h_state != h_replay:
         raise AssertionError("replay_log_fresh() != state_hash()")
 
-    # the same state on the CPU, through the plain versions
-    card = {}
-    for route in routes:
-        eng.sc.route = route
-        card[route] = query.retrieval_hash(*eng.retrieve(queries[0]))
-    if card["coarse"] != query.retrieval_hash(*refreshed):
+    # the card against the CPU's plain versions on one state is phase 6's
+    # (sharded) check; this phase's was cut to keep the run inside its time
+    eng.sc.route = "coarse"
+    if query.retrieval_hash(*eng.retrieve(queries[0])) \
+            != query.retrieval_hash(*refreshed):
         raise AssertionError("coarse route: two reads of one state differ")
-    t0 = time.perf_counter()
-    cpu_state = eng.memory.to("cpu")
-    q_cpu = boundary.admit_query(torch.from_numpy(queries[0]))
-    cpu_table = codes.build(cpu_state)
-    if codes.table_hash(cpu_table) != h_table:
-        raise AssertionError("code table: card and CPU differ")
-    cpu = {"exact": search.exact_search(cpu_state, q_cpu, K),
-           "hnsw": query.batched_hnsw_search(cpu_state, q_cpu, K,
-                                             ef=EF)[:2],
-           "coarse": search.coarse_search(cpu_state, cpu_table, q_cpu, K,
-                                          ef_coarse=EF_COARSE)}
-    for route in routes:
-        if query.retrieval_hash(*cpu[route]) != card[route]:
-            raise AssertionError(f"route {route}: card and CPU answers differ")
-        log(f"[engine] route={route} retrieval_hash {card[route]:#018x} "
-            f"equals the CPU plain path's")
-    log(f"[engine] CPU cross-check {time.perf_counter() - t0:.1f} s "
-        f"(code table included); memory_hash {eng.memory_hash():#018x}")
+    log(f"[engine] memory_hash {eng.memory_hash():#018x}")
     return counts, eng, flat_ref
 
 
@@ -1479,6 +1492,10 @@ def run_sharded(torch, dev, seed: int, flat_ref: dict) -> dict:
     n_docs = eng.live_count()
     dead = rng.choice(n_docs, size=n_docs // 100, replace=False)
     removed = timed("delete 1 %", lambda: eng.delete_documents(dead.tolist()))
+    # the HNSW answer on the replay graph, before the re-link (a re-link is
+    # not a logged command, so phase 7's hosts keep this graph)
+    eng.sc.route = "hnsw"
+    hnsw_replay = query.retrieval_hash(*eng.retrieve(queries[0]))
     timed("relink_now", eng.relink_now)
     n_batches = {"exact": SHARD_EXACT_BATCHES, "hnsw": SHARD_HNSW_BATCHES,
                  "coarse": SHARD_COARSE_BATCHES}
@@ -1538,8 +1555,10 @@ def run_sharded(torch, dev, seed: int, flat_ref: dict) -> dict:
         if query.retrieval_hash(*ans) != card[route]:
             raise AssertionError(f"sharded route {route}: card != CPU")
     out.update(conf=conf, card=card, h_state=h_state, removed=removed,
+               hnsw_replay=hnsw_replay,
                n_docs=n_docs, live=live.tolist(), read_ms=read_ms,
-               counts=counts, cover_ef=int(live.max()))
+               counts=counts, cover_ef=int(live.max()),
+               dead=dead.tolist(), queries=queries)
     log_end = eng.log
     del eng
 
@@ -1705,6 +1724,337 @@ def report_sharded(r, flat_ingest_docs_s: float) -> None:
     log(f"[sharded] kernel launches on phase 6's main path: {r['counts']}")
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: the network and replication
+# --------------------------------------------------------------------------- #
+
+
+def check_golden_wire() -> int:
+    """Every frame of ``tests/fixtures/golden_wire/`` decodes with the
+    port's protocol and re-encodes to the same bytes; returns the count."""
+    from repro_torch.net import protocol as p
+    fx = ROOT / "tests" / "fixtures" / "golden_wire"
+    index = json.loads((fx / "golden_wire.json").read_text())
+    if index["wire_format"] != p.WIRE_FORMAT:
+        raise AssertionError("golden wire: format differs")
+    for name, meta in index["frames"].items():
+        frame = (fx / f"{name}.bin").read_bytes()
+        msg, rid, end = p.decode_frame(frame)
+        if (end, msg.TYPE, rid, len(frame)) != (
+                len(frame), meta["msg_type"], meta["request_id"],
+                meta["bytes"]) or p.encode_frame(msg, rid) != frame:
+            raise AssertionError(f"golden wire frame {name} not reproduced")
+    if len(index["frames"]) != len(p.MESSAGE_TYPES):
+        raise AssertionError("golden wire: a message type has no frame")
+    return len(index["frames"])
+
+
+def run_network(torch, dev, seed: int, flat_ref: dict, sharded: dict
+                ) -> dict:
+    """Phase 7: the golden wire frames; the engine with ``hosts=`` over
+    SHARDS in-process shard servers (SHARD_ROWS rows each, every request
+    over a TCP socket), one following replica per shard, fed phase 3's
+    first SHARD_DOCS documents, held to phase 3's and phase 6's hashes, its
+    replica-served reads to its wire reads, a checkpoint over the wire; then
+    a failover through a SIGKILLed shard-server process at SIDE_CAPACITY
+    rows. Returns the times, hashes and the kernel launches of the
+    networked engine's path."""
+    from repro_torch import kernels
+    from repro_torch.core import boundary, commands, distributed, query
+    from repro_torch.core.state import init_state
+    from repro_torch.net import protocol as p
+    from repro_torch.net.client import RemoteShardClient, SocketTransport
+    from repro_torch.net.replica import FollowerPolicy, ReplicaStore
+    from repro_torch.net.server import ShardHost, ShardServer
+    from repro_torch.runtime.coordinator import FailureDetector, LeaseConfig
+    from repro_torch.serve.engine import MemoryAugmentedEngine, ServeConfig
+
+    times, out = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return res
+
+    out["golden_frames"] = timed("golden wire frames", check_golden_wire)
+    batches = engine_inputs(SHARD_DOCS, seed)[0]  # phase 3's first batches
+    queries = sharded["queries"]                  # phase 6's
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_net_"))
+    servers, eng, proc = [], None, None
+    try:
+        def start_hosts():
+            genesis = distributed.init_sharded_host(SHARDS, SHARD_ROWS, DIM,
+                                                    device=dev)
+            for s in range(SHARDS):
+                host = ShardHost(tmp / f"host_{s}",
+                                 distributed.shard_slice(genesis, s, SHARDS),
+                                 device=dev, chunk_size=CHUNK_SIZE)
+                servers.append(ShardServer(host).start())
+
+        timed("hosts' genesis", start_hosts)
+        eng = timed("engine, clients and replicas", lambda:
+                    MemoryAugmentedEngine(DIM, ServeConfig(
+                        capacity=CAPACITY, retrieve_k=K, ef=EF,
+                        ef_coarse=EF_COARSE,
+                        hosts=[f"127.0.0.1:{s.port}" for s in servers],
+                        durable_dir=str(tmp / "coordinator"), replicas=1,
+                        follow=FollowerPolicy()),
+                        device=dev))
+        kernels.reset_launch_counts()  # ---- the phase's main path starts ----
+        for i, emb in enumerate(batches):
+            timed(f"ingest batch {i}", lambda: eng.insert_documents(emb))
+        # reads go over the wire while the pool is detached (an empty pool
+        # means the primary serves)
+        pool, eng.read_replicas = eng.read_replicas, []
+        eng.sc.route = "exact"
+        conf = dict(memory_hash=timed("memory_hash", eng.memory_hash),
+                    exact=timed("exact read of phase 3's queries", lambda:
+                                eng.retrieval_hash(flat_ref["queries"])))
+        if (conf["memory_hash"], conf["exact"]) != (flat_ref["memory_hash"],
+                                                    flat_ref["exact"]):
+            raise AssertionError(f"networked engine != flat engine at "
+                                 f"{SHARD_DOCS} docs: {conf}")
+        timed("delete 1 %", lambda: eng.delete_documents(sharded["dead"]))
+        eng.read_replicas = pool
+        before = sum(rep.t for pool in eng.read_replicas for rep in pool)
+        out["lag"] = timed("sync_replicas", eng.sync_replicas)
+        if out["lag"] != 0:
+            raise AssertionError(f"sync_replicas left lag {out['lag']}")
+        out["catch_up_cmds"] = sum(rep.t for pool in eng.read_replicas
+                                   for rep in pool) - before
+        eng.read_replicas = []
+        wire, wire_ms = {}, {}
+        for route, nb in NET_BATCHES.items():
+            eng.sc.route = route
+            wire_ms[route] = []
+            for q in queries[:1 + nb]:  # queries[0] is the cold batch
+                t0 = time.perf_counter()
+                ans = eng.retrieve(q)
+                wire_ms[route].append((time.perf_counter() - t0) * 1e3)
+                if eng.last_plan.served_by != "primary":
+                    raise AssertionError("a wire read was not the primary's")
+                wire.setdefault(route, ans)
+        h_wire = {r: query.retrieval_hash(*a) for r, a in wire.items()}
+        for route in ("exact", "coarse"):
+            if h_wire[route] != sharded["card"][route]:
+                raise AssertionError(f"wire {route} != phase 6's read")
+        # HNSW: the hosts hold the replay graph (a re-link is not a logged
+        # command), which phase 6 read before its re-link
+        if h_wire["hnsw"] != sharded["hnsw_replay"]:
+            raise AssertionError("wire hnsw != phase 6's read before its "
+                                 "re-link")
+        live = distributed.shard_live_counts(eng.memory, SHARDS)
+        eng.sc.route, eng.sc.ef_coarse = "coarse", int(live.max())
+        cover = timed("coarse read at full coverage over the wire",
+                      lambda: eng.retrieve(queries[0]))
+        eng.sc.ef_coarse = EF_COARSE
+        if query.retrieval_hash(*cover) != h_wire["exact"]:
+            raise AssertionError("wire coarse at full coverage != exact")
+        eng.read_replicas = pool
+        rep_ms = {}
+        for route, nb in NET_BATCHES.items():
+            eng.sc.route = route
+            rep_ms[route] = []
+            for q in queries[:1 + nb]:
+                t0 = time.perf_counter()
+                ans = eng.retrieve(q)
+                rep_ms[route].append((time.perf_counter() - t0) * 1e3)
+                if not eng.last_plan.served_by.startswith("replica:"):
+                    raise AssertionError("a synced pool did not serve")
+                if q is queries[0] and query.retrieval_hash(*ans) \
+                        != h_wire[route]:
+                    raise AssertionError(f"replica {route} != wire read")
+        counts = kernels.launch_counts()  # ---- the main path ends ----
+        if min(counts.values()) < 1:
+            raise AssertionError(f"a kernel of phase 7 never launched: "
+                                 f"{counts}")
+        if any(rep.follow_error is not None for pool in eng.read_replicas
+               for rep in pool):
+            raise AssertionError("a follower stopped")
+        # an idempotent retry is logged where it happens; these count them
+        reps = [rep for pool in eng.read_replicas for rep in pool]
+        out["retries"] = dict(
+            clients=sum(c.transport.retries for c in eng._clients),
+            replicas=sum(rep.primary.transport.retries for rep in reps),
+            replica_faults=sum(rep.faults for rep in reps))
+        stats = timed("checkpoint over the wire", eng.checkpoint)
+        record = tmp / "coordinator" / "merged" / f"t_{stats['t']:020d}.json"
+        merged = json.loads(record.read_text())
+        if int(merged["hash"], 16) != eng.state_hash():
+            raise AssertionError("merged record != the engine's state hash")
+        out.update(conf=conf, h_wire=h_wire, wire_ms=wire_ms, rep_ms=rep_ms,
+                   counts=counts, merged=(stats["t"], merged["hash"]),
+                   cover_ef=int(live.max()))
+        eng.close()
+        eng = None
+        for srv in servers:
+            srv.close()
+            srv.host.close()
+        servers = []
+
+        # ---- 7c: failover through a real process ----
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.net.server", "--dir",
+             str(tmp / "primary"), "--capacity", str(SIDE_CAPACITY),
+             "--dim", str(DIM), "--port", "0", "--device", dev.type,
+             "--chunk-size", str(CHUNK_SIZE)],
+            stdout=subprocess.PIPE,
+            text=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        t0 = time.perf_counter()
+        line = proc.stdout.readline().strip()
+        times["primary process start"] = time.perf_counter() - t0
+        if not line.startswith("LISTENING "):
+            raise AssertionError(f"shard server did not start: {line!r}")
+        port = int(line.split()[1])
+
+        def client():
+            return RemoteShardClient(SocketTransport("127.0.0.1", port),
+                                     device=dev)
+
+        writer, probe = client(), client()
+        genesis = init_state(SIDE_CAPACITY, DIM, device=dev)
+        reps = timed("two durable replicas", lambda: [
+            ReplicaStore(client(), genesis, directory=tmp / f"replica_{i}",
+                         replica_id=i) for i in range(2)])
+        rng = np.random.default_rng(seed + 7)
+        logs = [commands.insert_batch(
+            torch.arange(i * FAIL_BATCH, (i + 1) * FAIL_BATCH, device=dev),
+            boundary.normalize_embedding(torch.from_numpy(rng.normal(
+                size=(FAIL_BATCH, DIM)).astype(np.float32)).to(dev)))
+            for i in range(4)]
+        timed("failover: ingest 2 batches", lambda: writer.append_many(
+            logs[:2]))
+        lags = [timed("failover: replica 0 catch-up", reps[0].catch_up)]
+        writer.append(logs[2])
+        lags.append(timed("failover: replica 1 catch-up", reps[1].catch_up))
+        t_max, h_max = reps[1].t, reps[1].state_hash()
+        qf = boundary.admit_query(torch.from_numpy(rng.normal(
+            size=(QUERIES, DIM)).astype(np.float32)).to(dev))
+        plans = {r: query.plan_query(reps[1].t, K, EF, route=r,
+                                     ef_coarse=EF_COARSE, dim=DIM)
+                 for r in ("exact", "coarse")}
+        proven = {r: query.execute_plan(reps[1].state, qf, K, pl)
+                  for r, pl in plans.items()}
+        writer.append(logs[3])  # the unshipped suffix dies with the primary
+        t_dead = writer.t
+        if lags != [0, 0] or not 0 < reps[0].t < t_max < t_dead:
+            raise AssertionError(f"failover set-up: {lags}, {reps[0].t}, "
+                                 f"{t_max}, {t_dead}")
+        t0 = time.perf_counter()
+        proc.kill()
+        proc.wait(timeout=60)
+        det = FailureDetector([probe], [reps],
+                              lease=LeaseConfig(lease_misses=1), epoch=0)
+        host = det.poll()[0]  # one missed beat: promote_on_primary_loss
+        server = ShardServer(host).start()
+        times["kill to promoted host"] = time.perf_counter() - t0
+        servers.append(server)
+        events = [e["event"] for e in det.events]
+        if events != ["miss", "lease_expired", "promoted"] or det.epoch != 1 \
+                or host.epoch != 1 or host.store.t != t_max \
+                or host.state_hash() != h_max:
+            raise AssertionError(f"failover: {det.events}")
+        writer.transport = SocketTransport("127.0.0.1", server.port)
+        try:  # the pre-failover writer, at epoch 0, against the new host
+            writer.append(logs[3])
+            raise AssertionError("a fenced writer committed")
+        except p.RemoteError as e:
+            if e.kind != "StaleEpochError":
+                raise
+        reader = RemoteShardClient(SocketTransport("127.0.0.1", server.port),
+                                   device=dev)
+        for r, pl in plans.items():
+            ids, scores = reader.query(qf, K, pl)
+            want = proven[r]
+            if not (np.array_equal(ids, want[0].cpu().numpy())
+                    and np.array_equal(scores, want[1].cpu().numpy())):
+                raise AssertionError(f"promoted host {r} != the replica's")
+        out["retries_failover"] = dict(
+            clients=sum(c.transport.retries for c in (writer, probe)),
+            replicas=sum(rep.primary.transport.retries for rep in reps),
+            replica_faults=sum(rep.faults for rep in reps))
+        reader.close()
+        writer.close()
+        probe.close()
+        reps[0].close()
+        out["failover"] = dict(t_lag=reps[0].t, t_max=t_max, t_dead=t_dead,
+                               h_max=h_max, epoch=det.epoch, events=events)
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait(timeout=60)
+        if eng is not None:
+            eng.close()
+        for srv in servers:
+            srv.close()
+            srv.host.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["times"] = times
+    return out
+
+
+def sharded_docs_s(sharded: dict) -> float:
+    return SHARD_DOCS / sum(sharded["times"][f"ingest batch {i}"]
+                            for i in range(SHARD_DOCS // BATCH))
+
+
+def report_network(r, sharded: dict) -> None:
+    for name, secs in r["times"].items():
+        log(f"[network] {name}: {secs:.3f} s ({CARD[0]})")
+    log(f"[network] golden wire: {r['golden_frames']} frames decoded and "
+        f"re-encoded to the same bytes")
+    per_batch = [r["times"][f"ingest batch {i}"]
+                 for i in range(SHARD_DOCS // BATCH)]
+    log(f"[network] ingest {SHARD_DOCS} docs through {SHARDS} shard hosts x "
+        f"{SHARD_ROWS} rows, one following replica each, in "
+        f"{sum(per_batch):.3f} s = {SHARD_DOCS / sum(per_batch):.1f} docs/s "
+        f"(phase 6, in process: {sharded_docs_s(sharded):.1f}) "
+        f"({CARD[0]})")
+    c = r["conf"]
+    log(f"[network] at {SHARD_DOCS} docs: memory_hash "
+        f"{c['memory_hash']:#018x} and exact retrieval_hash "
+        f"{c['exact']:#018x} equal phase 3's")
+    log("[network] wire reads equal phase 6's (exact and coarse after its "
+        "re-link, hnsw before it): " + ", ".join(
+            f"{k} {v:#018x}" for k, v in r["h_wire"].items()))
+    for route, ms in r["wire_ms"].items():
+        rep, p6 = r["rep_ms"][route], sharded["read_ms"][route]
+        log(f"[network] route={route}: wire cold {ms[0]:.3f} ms, p50 "
+            f"{statistics.median(ms[1:]):.3f} ms over {len(ms) - 1}; "
+            f"replica-served p50 {statistics.median(rep[1:]):.3f} ms; "
+            f"phase 6 in process p50 {statistics.median(p6[1:]):.3f} ms "
+            f"({CARD[0]})")
+    log(f"[network] coarse at ef_coarse={r['cover_ef']} over the wire "
+        f"equals the exact read; sync_replicas -> {r['lag']}; replica-served"
+        f" reads equal the wire reads on every route")
+    cmds, secs = r["catch_up_cmds"], r["times"]["sync_replicas"]
+    log(f"[network] replica catch-up: the {SHARDS} followers had "
+        f"{cmds} commands left to replay at sync_replicas, done in "
+        f"{secs:.3f} s = {cmds / secs:.1f} commands/s ({CARD[0]})")
+    t, h = r["merged"]
+    log(f"[network] checkpoint over the wire: merged record t={t} {h} == "
+        f"state_hash")
+    f = r["failover"]
+    log(f"[network] failover at {SIDE_CAPACITY} rows: replicas at "
+        f"t={f['t_lag']} and t={f['t_max']}, primary SIGKILLed at "
+        f"t={f['t_dead']}; detector events {f['events']}, epoch "
+        f"{f['epoch']}; promoted host t={f['t_max']} {f['h_max']:#018x} == "
+        f"the replica's proof; the epoch-0 writer is refused "
+        f"(StaleEpochError); exact and coarse reads equal the replica's; "
+        f"kill to promoted host {r['times']['kill to promoted host']:.3f} s "
+        f"({CARD[0]})")
+    log(f"[network] transport retries and replica faults ridden through "
+        f"(each logged on stderr): networked engine {r['retries']}; "
+        f"failover {r['retries_failover']}")
+    if any(r["retries"].values()):
+        print(f"chip_smoke: WARNING: the networked engine retried: "
+              f"{r['retries']}", file=sys.stderr)
+    log(f"[network] kernel launches on phase 7's main path: {r['counts']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 4096 by default keeps the whole run inside its time limit with phase
@@ -1731,7 +2081,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    log(f"[device] {smi.stdout.strip() or smi.stderr.strip()}")
+    CARD[0] = smi.stdout.strip() or smi.stderr.strip()
+    log(f"[device] {CARD[0]}")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -1801,11 +2152,18 @@ def main() -> int:
     report_sharded(sharded, flat_ref["ingest_docs_s"])
     log(f"[sharded] phase 6 in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    network = run_network(torch, dev, args.seed, flat_ref, sharded)
+    report_network(network, sharded)
+    log(f"[network] phase 7 in {time.perf_counter() - t0:.1f} s "
+        f"({CARD[0]})")
+
     kern = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/kernels/csrc/{name}.cu",
                  replaces=REPLACES[name], launches=counts[name],
                  launches_durable=durable["counts"][name],
                  launches_sharded=sharded["counts"][name],
+                 launches_network=network["counts"][name],
                  max_abs_err=r["max_abs_err"], mismatches=r["mismatches"],
                  ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

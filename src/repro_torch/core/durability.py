@@ -348,12 +348,19 @@ class SideTable:
     records ``u64 key | u32 len | payload | u64 digest(key|len|payload)``
     (``hashing.digest_bytes``). Later records for a key win. On open the
     file is truncated to its longest valid record prefix. ``put`` buffers
-    through the OS; ``sync()`` makes the table durable. (The reference's
-    record mirroring for replicas waits for the replication slice.)"""
+    through the OS; ``sync()`` makes the table durable.
+
+    The table is also shippable (DESIGN.md §9): records are kept in append
+    order with a chained prefix digest (``digest_at``), so a replica mirrors
+    the table record by record (``records_from`` on the primary,
+    ``append_record`` on the replica) and verifies the whole prefix against
+    one advertised digest."""
 
     def __init__(self, path: str | os.PathLike):
         self.path = pathlib.Path(path)
         self.entries: Dict[int, bytes] = {}
+        self._records: list = []   # raw record bytes, append order
+        self._chain: list = [0]    # _chain[i] = chained digest of records[:i]
         self._closed = False
         self._dirty = False
         # put/sync race when a timer-flush thread drives sync while the
@@ -390,6 +397,9 @@ class SideTable:
             if stored != hashing.digest_bytes(data[off:off + 12 + n]):
                 break  # torn/corrupt record: keep the valid prefix
             self.entries[key] = data[off + 12:off + 12 + n]
+            self._records.append(data[off:end])
+            self._chain.append(hashing.digest_bytes(
+                struct.pack("<Q", self._chain[-1]) + data[off:end]))
             off = valid = end
         if valid < len(data):
             with open(self.path, "r+b") as f:
@@ -404,6 +414,54 @@ class SideTable:
         with self._mu:
             self._f.write(raw)
             self.entries[key] = payload
+            self._records.append(raw)
+            self._chain.append(hashing.digest_bytes(
+                struct.pack("<Q", self._chain[-1]) + raw))
+            self._dirty = True
+
+    @property
+    def record_count(self) -> int:
+        with self._mu:
+            return len(self._records)
+
+    def digest_at(self, count: int) -> int:
+        """Chained digest over the first ``count`` records — the verify
+        target a mirroring replica must reproduce (0 records -> 0)."""
+        with self._mu:
+            if not 0 <= count < len(self._chain):
+                raise ValueError(
+                    f"digest_at({count}): table has {len(self._records)} "
+                    "records")
+            return self._chain[count]
+
+    def records_from(self, index: int):
+        """Raw self-validating record bytes [index, record_count) — what
+        SIDE_TAIL ships."""
+        with self._mu:
+            if not 0 <= index <= len(self._records):
+                raise ValueError(
+                    f"records_from({index}): table has {len(self._records)} "
+                    "records")
+            return list(self._records[index:])
+
+    def append_record(self, raw: bytes) -> None:
+        """Mirror one shipped record: re-verify its embedded digest, then
+        append it byte-identically (buffered; durable after ``sync()``).
+        A mirrored table is therefore a byte prefix of its source."""
+        if len(raw) < 20:
+            raise ValueError("side-table record truncated")
+        key, n = struct.unpack_from("<QI", raw, 0)
+        if len(raw) != 12 + n + 8:
+            raise ValueError("side-table record length mismatch")
+        (stored,) = struct.unpack_from("<Q", raw, 12 + n)
+        if stored != hashing.digest_bytes(raw[:12 + n]):
+            raise ValueError("side-table record digest mismatch")
+        with self._mu:
+            self._f.write(raw)
+            self.entries[key] = raw[12:12 + n]
+            self._records.append(raw)
+            self._chain.append(hashing.digest_bytes(
+                struct.pack("<Q", self._chain[-1]) + raw))
             self._dirty = True
 
     def sync(self) -> None:

@@ -1,7 +1,8 @@
-"""Memory-augmented serving engine: flat or sharded, in memory or durable.
+"""Memory-augmented serving engine: flat, sharded or networked, in memory
+or durable, with verified read replicas.
 
-The port of ``repro.serve.engine`` without replicas and without the
-network: the paper's §5.3 boundary, the audit trail and durability.
+The port of ``repro.serve.engine``: the paper's §5.3 boundary, the audit
+trail, durability, sharding, shard hosts over the wire and read replicas.
 
   embedding (float32) ──boundary.normalize──▶ INSERT log ──bulk_apply──▶ state
   query (float32)     ──boundary.admit_query──▶ planned exact / HNSW /
@@ -27,7 +28,8 @@ engine also keeps a durable doc side table (``docs.sdt``) of LM token
 prefixes; this engine has no tokens, so the table waits for the LM slice.
 It is a cache, not state, so no hash depends on it.
 
-Two serving modes share the class, as in the reference (DESIGN.md §7):
+Three serving modes share the class, as in the reference (DESIGN.md
+§7-§9):
 
 * ``ServeConfig(shards=1)``: a flat MemoryState, ``DurableStore``
   durability, planner-routed reads.
@@ -40,6 +42,19 @@ Two serving modes share the class, as in the reference (DESIGN.md §7):
   per shard. Fed the same embeddings, both modes allocate the same ids
   and report one ``memory_hash()`` and one exact-route
   ``retrieval_hash()``; ``state_hash()`` is the within-layout hash.
+* ``ServeConfig(hosts=["addr:port", ...])``: the sharded layout with
+  durability and reads fanned out to per-process shard hosts
+  (``net.ShardHost`` behind ``net.ShardServer``) over the wire protocol,
+  through one ``net.RemoteShardClient`` each; the engine's local sharded
+  state stays as the audit twin, so every remote append, checkpoint and
+  answer is checkable against it by hash.
+
+``replicas=k`` attaches k verified log-shipping read replicas per shard
+(``net.ReplicaStore``: followers of the engine's own store(s), or of the
+shard hosts), and ``follow=net.replica.FollowerPolicy(...)`` runs each on a
+background tailer. A read is served by the replica slot its query bytes
+pick when every chosen replica has proved the flush cursor (read-your-
+writes), else by the primary; ``last_plan.served_by`` says which.
 """
 from __future__ import annotations
 
@@ -52,8 +67,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import (boundary, codes, commands, distributed,
-                              hashing, hnsw, machine, query, shard_wal,
-                              snapshot)
+                              hashing, hnsw, machine, query, search,
+                              shard_wal, snapshot)
 from repro_torch.core import wal as wal_lib
 from repro_torch.core.contracts import DEFAULT_CONTRACT, PrecisionContract
 from repro_torch.core.durability import DurableStore
@@ -63,10 +78,10 @@ from repro_torch.core.state import MemoryState, init_state, resolve_device
 
 @dataclasses.dataclass
 class ServeConfig:
-    """The reference's field names. The engine serves one flat shard or
-    ``shards`` of them, in memory or durable, with the compressed tier
-    (``ef_coarse``, ``route="coarse"``); the replicated and networked
-    fields raise when set."""
+    """The reference's field names and checks. ``hosts`` ("addr:port" of
+    one shard host each) needs ``durable_dir`` (the coordinator's merged
+    records) and sets ``shards`` when it is left at 1; ``replicas`` needs a
+    durable store to follow; ``follow`` needs ``replicas``."""
     capacity: int = 4096
     retrieve_k: int = 4
     max_new_tokens: int = 32
@@ -90,22 +105,34 @@ class ServeConfig:
     follow: Optional[Any] = None
 
 
-_NOT_SERVED = {  # field: (value meaning "unset", the slice that serves it)
-    "hosts": (None, "network"), "replicas": (0, "replication"),
-    "follow": (None, "replication"),
-}
+def _host_port(address: str) -> Tuple[str, int]:
+    host, port = address.rsplit(":", 1)
+    return host, int(port)
 
 
 class MemoryAugmentedEngine:
     def __init__(self, d_model: int, serve_cfg: ServeConfig, *, device=None):
-        for name, (unset, slice_name) in _NOT_SERVED.items():
-            if getattr(serve_cfg, name) != unset:
-                raise NotImplementedError(
-                    f"ServeConfig.{name} is served by the {slice_name} slice "
-                    f"of the port, not by this engine")
         n = serve_cfg.shards
         if n < 1:
             raise ValueError(f"shards must be >= 1, got {n}")
+        if serve_cfg.hosts is not None:
+            if n == 1:
+                n = len(serve_cfg.hosts)
+            elif n != len(serve_cfg.hosts):
+                raise ValueError(
+                    f"shards={n} but {len(serve_cfg.hosts)} hosts given")
+            if serve_cfg.durable_dir is None:
+                raise ValueError(
+                    "networked serving (hosts=[...]) needs durable_dir: the "
+                    "coordinator keeps its merged-hash records there")
+        if serve_cfg.follow is not None and not serve_cfg.replicas:
+            raise ValueError(
+                "follow=FollowerPolicy(...) needs replicas > 0: a "
+                "follower policy paces read replicas, and there are none")
+        if serve_cfg.replicas and serve_cfg.durable_dir is None:
+            raise ValueError(
+                "replicas=k needs durable_dir: a read replica follows a "
+                "durable WAL, and without one there is nothing to tail")
         if serve_cfg.capacity % n:
             raise ValueError(
                 f"capacity {serve_cfg.capacity} must divide evenly across "
@@ -114,7 +141,9 @@ class MemoryAugmentedEngine:
         self.d_model = d_model
         self.sc = serve_cfg
         self.n_shards = n
-        self._layout_sharded = n > 1
+        # networked serving uses the sharded layout even at one shard (its
+        # durable twin is a fleet of one)
+        self._layout_sharded = n > 1 or serve_cfg.hosts is not None
         if not self._layout_sharded:
             self.memory: MemoryState = init_state(
                 serve_cfg.capacity, d_model, contract=serve_cfg.contract,
@@ -143,13 +172,27 @@ class MemoryAugmentedEngine:
         self._code_tables: Optional[List[codes.CodeTable]] = None
 
         self.durable = None  # DurableStore | ShardedDurableStore | None
+        self._clients = None  # net.RemoteShardClient fleet (hosts mode)
         self._group: Optional[wal_lib.GroupCommitWriter] = None
         self._ckpt_thread: Optional[threading.Thread] = None
         self._ckpt_error: Optional[BaseException] = None
         self._last_ckpt_t = 0
         self._closed = False
         if serve_cfg.durable_dir is not None:
-            if not self._layout_sharded:
+            if serve_cfg.hosts is not None:
+                # one client per shard host; the sharded store drives them
+                # through the surface local shards expose
+                from repro_torch.net.client import (RemoteShardClient,
+                                                    SocketTransport)
+                self._clients = [
+                    RemoteShardClient(SocketTransport(*_host_port(h)),
+                                      contract=serve_cfg.contract,
+                                      device=self.device)
+                    for h in serve_cfg.hosts]
+                self.durable = ShardedDurableStore(
+                    serve_cfg.durable_dir, backends=self._clients,
+                    device=self.device)
+            elif not self._layout_sharded:
                 self.durable = DurableStore(
                     serve_cfg.durable_dir, self.memory,
                     compaction=serve_cfg.compaction, device=self.device)
@@ -167,6 +210,13 @@ class MemoryAugmentedEngine:
             # possible reading of the config
             raise ValueError(
                 "group_commit/compaction policies need durable_dir set")
+
+        # the read pool (DESIGN.md §9): read_replicas[s][i] is the i-th
+        # verified follower of shard s (one list in flat mode)
+        self.read_replicas: List[List[Any]] = []
+        if serve_cfg.replicas:
+            self._spawn_replicas(serve_cfg.replicas)
+            self._start_followers()
 
     def _as_f32(self, x) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
@@ -194,6 +244,104 @@ class MemoryAugmentedEngine:
 
     def live_count(self) -> int:
         return shard_wal.live_count(self.memory)
+
+    def _genesis_state(self) -> MemoryState:
+        """A fresh t=0 state in the engine's layout, on its device."""
+        if not self._layout_sharded:
+            return init_state(self.sc.capacity, self.d_model,
+                              contract=self.sc.contract, device=self.device)
+        return distributed.init_sharded_host(
+            self.n_shards, self.sc.capacity // self.n_shards, self.d_model,
+            contract=self.sc.contract, device=self.device)
+
+    # ------------------------------------------------------------------ #
+    # read pool: verified replicas behind the flush barrier (DESIGN.md §9)
+    # ------------------------------------------------------------------ #
+
+    def _spawn_replicas(self, k: int) -> None:
+        """Attach ``k`` in-process verified followers per shard: of the
+        engine's own store(s) through ``LocalPrimary`` in local modes, of
+        the shard hosts over their own connections in networked mode. Each
+        starts from the t=0 state (its shard slice in sharded layouts) and
+        earns its cursor through verify-then-ack catch-up. (The reference
+        seeds a respawned pool with the live state, which its replicas
+        refuse once the engine is past t=0; a fresh genesis is what its
+        catch-up needs.)"""
+        from repro_torch.net.replica import LocalPrimary, ReplicaStore
+        genesis = self.memory if self._cursor() == 0 \
+            else self._genesis_state()
+        if not self._layout_sharded:
+            primaries = [lambda: LocalPrimary(
+                self.durable, state_fn=lambda: self.memory)]
+            geneses = [genesis]
+        else:
+            if self._clients is not None:
+                from repro_torch.net.client import (RemoteShardClient,
+                                                    SocketTransport)
+
+                def primary(s):
+                    return lambda: RemoteShardClient(
+                        SocketTransport(*_host_port(self.sc.hosts[s])),
+                        contract=self.sc.contract, device=self.device)
+            else:
+                def primary(s):
+                    return lambda: LocalPrimary(
+                        self.durable.shards[s],
+                        state_fn=lambda: distributed.shard_slice(
+                            self.memory, s, self.n_shards))
+            primaries = [primary(s) for s in range(self.n_shards)]
+            geneses = [distributed.shard_slice(genesis, s, self.n_shards)
+                       for s in range(self.n_shards)]
+        self.read_replicas = [
+            [ReplicaStore(make_primary(), geneses[s], replica_id=s * k + i)
+             for i in range(k)]
+            for s, make_primary in enumerate(primaries)]
+
+    def _start_followers(self) -> None:
+        """One background tailer per replica under ``ServeConfig.follow``
+        (DESIGN.md §12); without a policy the pool advances only on
+        ``sync_replicas()``."""
+        if self.sc.follow is None:
+            return
+        for pool in self.read_replicas:
+            for rep in pool:
+                rep.start_following(self.sc.follow)
+
+    def _reset_replicas(self) -> None:
+        """Tear the read pool down and respawn it (recover / rollback):
+        a pool must never serve a state the current durable history cannot
+        prove, so fresh replicas re-earn their cursors."""
+        if not self.read_replicas:
+            return
+        for pool in self.read_replicas:
+            for rep in pool:
+                rep.close()  # stops the follower thread first
+        self.read_replicas = []
+        self._spawn_replicas(self.sc.replicas)
+        self._start_followers()
+
+    def _pick_replica(self, q_raw: torch.Tensor) -> Optional[int]:
+        """The pool slot of a request, from its query bytes (the same query
+        always lands on the same slot). The slot must exist on every
+        shard's pool, so the usable size is the smallest pool; an empty
+        pool returns None and the primary serves."""
+        sizes = [len(pool) for pool in self.read_replicas]
+        n = min(sizes) if sizes else 0
+        if n == 0:
+            return None
+        return hashing.digest_bytes(q_raw.cpu().numpy().tobytes()) % n
+
+    def sync_replicas(self, *, max_commands: int = 0) -> int:
+        """Catch every replica up to the flush cursor, each slice verified
+        against the primary's hash before commit. Returns the largest
+        residual lag in the pool: 0 means every replica proved the flush
+        cursor."""
+        self.flush()
+        lag = 0
+        for pool in self.read_replicas:
+            for rep in pool:
+                lag = max(lag, rep.catch_up(max_commands=max_commands))
+        return lag
 
     # ------------------------------------------------------------------ #
     # WRITE path
@@ -343,7 +491,9 @@ class MemoryAugmentedEngine:
         """float32 queries [B, d] → (ids [B, k], scores [B, k]), on the
         route the planner picks from static facts (``last_plan``)."""
         k = k or self.sc.retrieve_k
-        self.flush()
+        # sync-on-read barrier: nothing un-durable is observable, and the
+        # cursor it returns is the read-your-writes floor for replica reads
+        flush_t = self.flush()
         emb = self._as_f32(query_embeddings)
         q_raw = boundary.admit_query(emb, self.sc.contract)
         plan = query.plan_query(
@@ -351,17 +501,61 @@ class MemoryAugmentedEngine:
             exact_threshold=self.sc.exact_threshold, route=self.sc.route,
             ef_coarse=self.sc.ef_coarse, dim=self.d_model,
             graph_gen=self.graph_gen)
+        pool_states = None
+        if self.read_replicas:
+            slot = self._pick_replica(q_raw)
+            if slot is not None:
+                # one proven (state, hash, t) per replica: a live follower
+                # may commit concurrently
+                chosen = [pool[slot] for pool in self.read_replicas]
+                snaps = [rep.snapshot() for rep in chosen]
+                if all(t >= flush_t for _, _, t in snaps):
+                    pool_states = [state for state, _, _ in snaps]
+                    plan = dataclasses.replace(plan,
+                                               served_by=f"replica:{slot}")
         self.last_plan = plan
-        if plan.route == query.ROUTE_COARSE:
-            self._ensure_code_tables()
-        if not self._layout_sharded:
-            ids, scores = query.execute_plan(self.memory, q_raw, k, plan,
-                                             codes=self._code_table)
+        if pool_states is not None:
+            ids, scores = self._replica_query(chosen, pool_states, q_raw, k,
+                                              plan)
+        elif self._clients is not None:
+            # every shard host executes the plan on its applied state; the
+            # candidates merge with the one order-invariant combine
+            from repro_torch.net.client import remote_sharded_query
+            ids, scores = remote_sharded_query(self._clients, q_raw, k, plan)
         else:
-            ids, scores = query.sharded_host_query(
-                self.memory, self.n_shards, q_raw, k, plan,
-                tables=self._code_tables)
+            if plan.route == query.ROUTE_COARSE:
+                self._ensure_code_tables()
+            if not self._layout_sharded:
+                ids, scores = query.execute_plan(self.memory, q_raw, k, plan,
+                                                 codes=self._code_table)
+            else:
+                ids, scores = query.sharded_host_query(
+                    self.memory, self.n_shards, q_raw, k, plan,
+                    tables=self._code_tables)
         return ids.cpu().numpy(), scores.cpu().numpy()
+
+    def _replica_query(self, replicas: list, pool_states: List[MemoryState],
+                       q_raw: torch.Tensor, k: int, plan: query.QueryPlan
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The plan on the chosen replicas' verified states: the flat state
+        directly, per-shard states merged with the one (score, id) combine.
+        A coarse read takes each replica's code table of the state it
+        serves (built once per cursor; the reference builds one per
+        read)."""
+        def run(rep, st):
+            table = rep.coarse_table(st) \
+                if plan.route == query.ROUTE_COARSE else None
+            return query.execute_plan(st, q_raw.to(st.device), k, plan,
+                                      codes=table)
+
+        if not self._layout_sharded:
+            return run(replicas[0], pool_states[0])
+        parts = [run(rep, st) for rep, st in zip(replicas, pool_states)]
+        dev = q_raw.device
+        s_out, i_out = search.merge_candidates(
+            torch.cat([sc.to(dev) for _, sc in parts], dim=-1),
+            torch.cat([ids.to(dev) for ids, _ in parts], dim=-1), k)
+        return i_out, s_out
 
     def retrieval_hash(self, query_embeddings, k: Optional[int] = None) -> int:
         ids, scores = self.retrieve(query_embeddings, k)
@@ -375,14 +569,26 @@ class MemoryAugmentedEngine:
         """Force any pending group-commit batch durable; returns the durable
         WAL cursor (the memory cursor in memory-only mode). The read path
         calls this before serving — the sync-on-read barrier — and it is
-        the ack point for upstream callers under group commit."""
+        the ack point for upstream callers under group commit. With live
+        followers it also wakes any replica lagging the cursor by more than
+        the policy's ``max_lag_commands`` (never waits on one)."""
         if self._group is not None:
-            return self._group.flush()
-        return self.durable.t if self.durable is not None else self._cursor()
+            t = self._group.flush()
+        else:
+            t = self.durable.t if self.durable is not None \
+                else self._cursor()
+        if self.sc.follow is not None:
+            lag_bound = self.sc.follow.max_lag_commands
+            for pool in self.read_replicas:
+                for rep in pool:
+                    if t - rep.t > lag_bound:
+                        rep.notify_writes()
+        return t
 
     def close(self) -> None:
-        """Flush pending ingest, join background work and stop the group-
-        commit writer (and its timer thread). Idempotent."""
+        """Flush pending ingest, join background work, stop the group-commit
+        writer (and its timer thread), close every read replica (follower
+        threads, transports) and the shard-host connections. Idempotent."""
         if self._closed:
             return
         self._closed = True
@@ -390,6 +596,11 @@ class MemoryAugmentedEngine:
         self.wait_durable()
         if self._group is not None:
             self._group.close()
+        for pool in self.read_replicas:
+            for rep in pool:
+                rep.close()
+        for c in self._clients or ():
+            c.close()
 
     def wait_durable(self) -> None:
         """Join any in-flight background checkpoint; re-raise its error."""
@@ -413,7 +624,7 @@ class MemoryAugmentedEngine:
         store = self._require_durable()
         self.flush()  # a snapshot may only cover durable commands
         self.wait_durable()
-        stats = store.checkpoint(self.memory.to("cpu"))
+        stats = store.checkpoint(self._checkpoint_source())
         self._last_ckpt_t = self._cursor()
         if self.sc.retain_snapshots > 0:
             stats.update(store.retain(self.sc.retain_snapshots))
@@ -427,9 +638,17 @@ class MemoryAugmentedEngine:
             return
         self.flush()  # a snapshot may only cover durable commands
         self.wait_durable()  # one in flight at a time; surfaces past errors
-        host_state = self.memory.to("cpu")
+        host_state = self._checkpoint_source()
         self._last_ckpt_t = self._cursor()
         store = self.durable
+        if self._clients is not None:
+            # synchronous over the wire: a host proves cursor and hash
+            # against its applied state at request time, so a background
+            # thread would race the next append's cursor advance
+            store.checkpoint(host_state)
+            if self.sc.retain_snapshots > 0:
+                store.retain(self.sc.retain_snapshots)
+            return
 
         def work():
             try:
@@ -441,6 +660,13 @@ class MemoryAugmentedEngine:
 
         self._ckpt_thread = threading.Thread(target=work, daemon=True)
         self._ckpt_thread.start()
+
+    def _checkpoint_source(self) -> MemoryState:
+        """What a checkpoint reads: a host copy of the state, or in
+        networked mode the state where it is (only its per-shard hashes
+        cross the wire; each host snapshots its own applied state)."""
+        return self.memory if self._clients is not None \
+            else self.memory.to("cpu")
 
     def _checkpoint_code_tables(self) -> None:
         """Cut each code table's content-addressed manifest beside the
@@ -507,6 +733,9 @@ class MemoryAugmentedEngine:
         self._last_ckpt_t = t     # first coarse read (pure function of it)
         self._reload_audit_logs(t)
         self._reload_serving_caches()
+        # recovery may land below the replicas' cursors: every served
+        # cursor re-earns its proof against the recovered history
+        self._reset_replicas()
         return t, self._canonicalize_graph(t, h)
 
     def rollback_to(self, t: int) -> Tuple[int, int]:
@@ -523,6 +752,9 @@ class MemoryAugmentedEngine:
         self._last_ckpt_t = t
         self._reload_audit_logs(t)
         self._reload_serving_caches()
+        # rollback rewrites history: replicas ahead of t proved a prefix
+        # that no longer exists
+        self._reset_replicas()
         return t, self._canonicalize_graph(t, h)
 
     def _canonicalize_graph(self, t: int, h: int) -> int:
@@ -578,13 +810,9 @@ class MemoryAugmentedEngine:
                 pos = t
             return machine.replay(st, log.slice(pos, len(log)))
 
+        genesis = self._genesis_state()
         if not self._layout_sharded:
-            st = init_state(self.sc.capacity, self.d_model,
-                            contract=self.sc.contract, device=self.device)
-            return hashing.hash_state_device(replay(st, self.log))
-        genesis = distributed.init_sharded_host(
-            self.n_shards, self.sc.capacity // self.n_shards, self.d_model,
-            contract=self.sc.contract, device=self.device)
+            return hashing.hash_state_device(replay(genesis, self.log))
         return hashing.hash_state_device(distributed.merge_shards(
             [replay(distributed.shard_slice(genesis, s, self.n_shards),
                     self._shard_logs[s]) for s in range(self.n_shards)]))

@@ -73,9 +73,14 @@ def test_engine_retrieval_matches(pair, route):
 
 
 def test_engine_refuses_unserved_modes_and_silent_cpu():
-    for kw in (dict(follow=object()), dict(hosts=["localhost:1"]),
-               dict(replicas=1)):
-        with pytest.raises(NotImplementedError):
+    # the networked and replicated modes are served; their inconsistent
+    # configurations are refused as the reference refuses them
+    for kw, match in ((dict(follow=object()), "needs replicas > 0"),
+                      (dict(replicas=1), "replicas=k needs durable_dir"),
+                      (dict(hosts=["localhost:1"]), "needs durable_dir"),
+                      (dict(shards=2, hosts=["localhost:1"],
+                            durable_dir="unused"), "shards=2 but 1 hosts")):
+        with pytest.raises(ValueError, match=match):
             tengine.MemoryAugmentedEngine(8, tengine.ServeConfig(**kw),
                                           device="cpu")
     # the compressed tier is served: both ways of asking for it build an

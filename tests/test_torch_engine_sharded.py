@@ -74,9 +74,13 @@ def test_sharded_engine_config_checks():
     with pytest.raises(ValueError, match="shards"):
         tengine.MemoryAugmentedEngine(8, tengine.ServeConfig(shards=0),
                                       device="cpu")
-    for kw in (dict(hosts=["localhost:1"]), dict(replicas=1),
-               dict(follow=object())):
-        with pytest.raises(NotImplementedError):
+    for kw, match in ((dict(hosts=["localhost:1", "localhost:2"]),
+                       "needs durable_dir"),
+                      (dict(hosts=["localhost:1"], durable_dir="unused"),
+                       "shards=2 but 1 hosts"),
+                      (dict(replicas=1), "replicas=k needs durable_dir"),
+                      (dict(follow=object()), "needs replicas > 0")):
+        with pytest.raises(ValueError, match=match):
             tengine.MemoryAugmentedEngine(8, tengine.ServeConfig(
                 shards=2, **kw), device="cpu")
 

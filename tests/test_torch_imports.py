@@ -38,7 +38,10 @@ def test_port_imports_neither_jax_nor_reference():
     assert {"repro_torch.core.codes", "repro_torch.core.snapshot",
             "repro_torch.core.distributed", "repro_torch.core.shard_wal",
             "repro_torch.kernels.qcoarse.ops",
-            "repro_torch.kernels.qcoarse.kernel"} <= set(mods)
+            "repro_torch.kernels.qcoarse.kernel",
+            "repro_torch.net.protocol", "repro_torch.net.server",
+            "repro_torch.net.client", "repro_torch.net.replica",
+            "repro_torch.runtime.coordinator"} <= set(mods)
 
 
 def _imported_names(path):
