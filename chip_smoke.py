@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--docs 4096] [--seed 0]
+    python3 chip_smoke.py [--docs 3072] [--seed 0]
 
 Phases (any failure raises and exits non-zero):
 
@@ -37,7 +37,7 @@ Phases (any failure raises and exits non-zero):
    counts of each library (``cuobjdump -sass``);
 3. engine — the flat engine at full width (d = 2304, gemma2-2b's d_model;
    131072-row arena; Q16.16; ef_coarse = 256): ingest seeded float32
-   embeddings in batches of 512 (4096 documents by default; after the
+   embeddings in batches of 512 (3072 documents by default; after the
    fourth batch, the ``memory_hash`` and the exact route's
    ``retrieval_hash`` of one query batch are recorded for phase 6, their
    launches counted apart), delete 1 % and re-link, retrieve batches
@@ -53,8 +53,8 @@ Phases (any failure raises and exits non-zero):
    (the exact one also with its boundary: the copy to the card and
    ``admit_query``). Then the refreshed
    table equals ``codes.build`` of the state and ``replay_log_fresh() ==
-   state_hash()`` (the card against the CPU on one state is phase 6's
-   check, cut here to keep the run inside its time);
+   state_hash()`` (its routes against the CPU's on a copy of the state
+   are cut to keep the run inside its time, as are phase 6's);
 4. golden — the hashes the JAX reference wrote at d = 2304
    (``tests/fixtures/torch_port_golden.json``, code table and coarse
    routes included) reproduce on the card; the reference's golden v1 and
@@ -94,8 +94,10 @@ Phases (any failure raises and exits non-zero):
    zeroed before the ingest and read after the reads; coverage == exact,
    ``distributed_search`` over ``[cuda:0] * 4`` == the exact route, a
    per-stage CUDA-event breakdown of one warm exact and one warm coarse
-   batch, ``replay_log_fresh() == state_hash()`` and the three routes
-   equal to the CPU's on a copy of the state; then a ``ShardedDurableStore``
+   batch and ``replay_log_fresh() == state_hash()`` (the routes against
+   the CPU's on a copy of the state are cut for time; the card is held to
+   the CPU by phase 2's ``exact_search`` on every storage type and phase
+   5's recovery); then a ``ShardedDurableStore``
    at full arena (1 MiB chunks): crash → recover to the pre-crash merged
    hash, a crash between per-shard flushes reconciled to the last whole
    cursor, ``rollback_to`` the checkpoint; the durable sharded engine
@@ -126,7 +128,32 @@ Phases (any failure raises and exits non-zero):
    miss) promotes the replica with the max proven prefix at epoch 1, whose
    ``state_hash`` must equal the replica's proof, the epoch-0 writer must
    be refused (``StaleEpochError``) and the promoted host, behind a new
-   server, must answer the exact and coarse reads with the replica's bits.
+   server, must answer the exact and coarse reads with the replica's bits;
+8. lm — gemma2-2b's CONFIG built on the card (26 layers, d = 2304,
+   vocabulary 256000, bf16 compute over f32 parameters, from
+   ``torch.Generator("cuda").manual_seed(seed)``) behind
+   ``MemoryAugmentedEngine(cfg, params, ServeConfig(capacity=131072,
+   ...))``: 1024 seeded token documents of 64 tokens ingested in 2 batches
+   of 512, 64 prompts of 16 tokens retrieved on the auto route (exact at
+   1024 live rows; one cold batch, then 10), 8 prompts x 32 tokens
+   generated, augmented, twice (the two must be equal), launch counts
+   zeroed before the ingest and read after the generations, and
+   ``replay_log_fresh() == state_hash()``; one ingest batch's float
+   embeddings, normalized on the CPU, must equal the rows the card logged
+   bit for bit; the augmented prompt must hold the top hit's tokens and
+   its prefill logits must differ from the bare prompt's; generate's
+   prefill and greedy decode, as the engine calls them, timed with CUDA
+   events (the timed decode must give generate's tokens); the first
+   local/global pair and the head copied to the CPU and run in f32 on 4
+   documents against the card in f32 (pooled embeddings, prefill logits
+   and teacher-forced decode steps, with and without a ring-buffer wrap,
+   held to ``LM_F32_REL_TOL``), with the count of Q16.16 words in which
+   the card's bf16 pair embeddings differ from the CPU's f32 ones after
+   the boundary printed, not held; then the durable LM engine
+   (``SIDE_CAPACITY`` rows, checkpoint every 512): 768 documents, a crash
+   (no ``close``), ``recover()`` to the same ``(t, hash)`` with the doc
+   cache reloaded from ``docs.sdt``, the same generated tokens, and
+   ``rollback_to`` the checkpoint with every live id's tokens cached.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs the repository's ``src/``
@@ -135,6 +162,7 @@ beside it and a CUDA device; it does not fall back to the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -192,6 +220,32 @@ SHARD_CHECKPOINT_EVERY = 256  # per-shard cursor: about two batches of 512
 NET_BATCHES = {"exact": 10, "hnsw": 2, "coarse": 10}
 FAIL_BATCH = 128
 CARD = ["card not read"]  # nvidia-smi's name and power limit, for reports
+# phase 8: the LM serving path at gemma2-2b's full width (26 layers, d =
+# 2304, vocabulary 256000, bf16 compute over f32 parameters): LM_DOCS
+# documents of LM_DOC_LEN tokens in batches of BATCH, LM_QUERY_BATCHES
+# warm batches of QUERIES prompts of LM_PROMPT_LEN tokens after one cold
+# one, GEN_PROMPTS prompts generating GEN_NEW tokens (twice); then a
+# durable engine over SIDE_CAPACITY rows ingests LM_DURABLE_DOCS in
+# batches of LM_DURABLE_BATCH with a checkpoint every LM_CHECKPOINT_EVERY
+LM_ARCH = "gemma2-2b"
+LM_DOCS = 1024
+LM_DOC_LEN = 64
+LM_PROMPT_LEN = 16
+LM_QUERY_BATCHES = 10
+LM_CONTEXT = 32
+GEN_PROMPTS = 8
+GEN_NEW = 32
+LM_S_CACHE = 128
+LM_DURABLE_DOCS = 768
+LM_DURABLE_BATCH = 256
+LM_CHECKPOINT_EVERY = 512
+LM_NUMERICS_DOCS = 4
+LM_NUMERICS_STEPS = 4  # teacher-forced decode steps after the prefill
+# the first local/global pair and the head in f32, the card against the
+# CPU: the largest |difference| over the largest |CPU value|, for the
+# pooled embeddings and for the logits of the prefill and of each decode
+# step
+LM_F32_REL_TOL = 1e-4
 
 REPLACES = {
     "qboundary": "src/repro/kernels/qboundary/kernel.py:29",
@@ -199,6 +253,7 @@ REPLACES = {
     "qtopk": "src/repro/kernels/qtopk/kernel.py:30",
     "qcoarse": "src/repro/kernels/qcoarse/kernel.py:41",
 }
+LM_KERNELS = ("qboundary", "qgemm", "qtopk")  # phase 8's path (exact route)
 
 
 def log(msg: str) -> None:
@@ -295,7 +350,8 @@ def check_qboundary(torch, dev, rng):
         acc["mismatches"] += case["mismatches"]
 
     for n, d in [(1, 8), (4, 16), (257, 768), (100, 64), (3, 8192),
-                 (QUERIES, DIM), (BATCH, DIM), (6, 1), (6, 3), (6, 77),
+                 (QUERIES, DIM), (BATCH, DIM), (GEN_PROMPTS, DIM),
+                 (LM_DURABLE_BATCH, DIM), (6, 1), (6, 3), (6, 77),
                  (5, 2303), (5, 4097), (3, 40000), (2, 40003)]:
         run(f"[{n}, {d}]", torch.from_numpy(qboundary_rows(rng, n, d)).to(dev))
     # one float past 16-byte alignment: a contiguous view at offset 1
@@ -452,6 +508,11 @@ def check_qgemm(torch, dev, rng):
     # the main path's scan: 64 queries against the whole arena, and against
     # one shard's rows (phase 6)
     run(f"int32 main [{nq}, {d}] x [{nn}, {d}]", q, db)
+    # phase 8's generate reads: GEN_PROMPTS prompts against the whole
+    # arena, and against the durable LM engine's SIDE_CAPACITY rows
+    for rows in (nn, SIDE_CAPACITY):
+        run(f"int32 generate [{GEN_PROMPTS}, {d}] x [{rows}, {d}]",
+            q[:GEN_PROMPTS], db[:rows])
     ms = cuda_ms(torch, lambda: ops.qgemm(q, db), 10)
     plain = cuda_ms(torch, lambda: ref.qgemm_ref(q, db), 3)
     qf, dbf = q.to(torch.float64), db.to(torch.float64)
@@ -514,7 +575,8 @@ def check_qtopk(torch, dev, rng):
                       (5, 128, 9), (4, 1000, 12), (4, 1030, 10), (4, 5000, 16),
                       (2, 1030, 40), (3, 50, 80), (2, 1030, 1040),
                       (2, 2100, 3000), (2, 9000, 4095), (2, 9000, 4096),
-                      (QUERIES, CAPACITY, K)]:
+                      (QUERIES, CAPACITY, K), (GEN_PROMPTS, CAPACITY, K),
+                      (GEN_PROMPTS, SIDE_CAPACITY, K)]:
         s = torch.from_numpy(rng.integers(-2**45, 2**45, (nq, m))).to(dev)
         s[:, ::5] = 0  # ties
         run(f"random [{nq}, {m}] k={kk}", s, perm(m), kk)
@@ -1000,8 +1062,8 @@ def run_engine(torch, dev, n_docs: int, seed: int):
     if h_state != h_replay:
         raise AssertionError("replay_log_fresh() != state_hash()")
 
-    # the card against the CPU's plain versions on one state is phase 6's
-    # (sharded) check; this phase's was cut to keep the run inside its time
+    # the routes against the CPU's plain versions on a copy of the state
+    # are cut to keep the run inside its time (phase 6's too)
     eng.sc.route = "coarse"
     if query.retrieval_hash(*eng.retrieve(queries[0])) \
             != query.retrieval_hash(*refreshed):
@@ -1446,8 +1508,8 @@ def sharded_breakdown(torch, eng, queries) -> dict:
 def run_sharded(torch, dev, seed: int, flat_ref: dict) -> dict:
     """The sharded engine at phase 3's width over SHARDS x SHARD_ROWS rows:
     conformance with the flat engine, the three routes after a delete and a
-    re-link, coverage == exact, the device-list mesh path, the audit, the
-    card against the CPU, a ShardedDurableStore at full arena (crash →
+    re-link, coverage == exact, the device-list mesh path, the audit, a
+    ShardedDurableStore at full arena (crash →
     recover, a crash between per-shard flushes, rollback), the durable
     sharded engine (group commit, checkpoints, recover) and the JAX-written
     fixtures, each held to its hash. Returns the times, hashes and the
@@ -1538,22 +1600,11 @@ def run_sharded(torch, dev, seed: int, flat_ref: dict) -> dict:
     if timed("replay_log_fresh", eng.replay_log_fresh) != h_state:
         raise AssertionError("sharded replay_log_fresh() != state_hash()")
 
-    # the same state on the CPU, through the plain versions
+    # each route's first answer, which phase 7's wire reads must equal (the
+    # CPU's plain versions on a copy of this state are cut to keep the run
+    # inside its time)
     card = {route: query.retrieval_hash(*answers[route][0])
             for route in n_batches}
-
-    def on_cpu():
-        st = eng.memory.to("cpu")
-        qc = boundary.admit_query(torch.from_numpy(queries[0]))
-        return {"exact": shard_wal.exact_search_sharded(st, SHARDS, qc, K),
-                "hnsw": shard_wal.hnsw_search_sharded(st, SHARDS, qc, K,
-                                                      ef=EF),
-                "coarse": shard_wal.coarse_search_sharded(
-                    st, SHARDS, qc, K, ef_coarse=EF_COARSE)}
-
-    for route, ans in timed("the CPU's three routes", on_cpu).items():
-        if query.retrieval_hash(*ans) != card[route]:
-            raise AssertionError(f"sharded route {route}: card != CPU")
     out.update(conf=conf, card=card, h_state=h_state, removed=removed,
                hnsw_replay=hnsw_replay,
                n_docs=n_docs, live=live.tolist(), read_ms=read_ms,
@@ -1702,7 +1753,7 @@ def report_sharded(r, flat_ingest_docs_s: float) -> None:
         f"live count) equals the exact route; distributed_search over "
         f"cuda:0 x {SHARDS} equals the exact route's (ids, scores); "
         f"replay_log_fresh == state_hash {r['h_state']:#018x}")
-    log("[sharded] card == CPU (plain versions): " + ", ".join(
+    log("[sharded] first read per route: " + ", ".join(
         f"{route} {h:#018x}" for route, h in r["card"].items()))
     s = r["store"]
     log(f"[sharded] store ({CHUNK_SIZE}-byte chunks): recover -> "
@@ -2055,11 +2106,393 @@ def report_network(r, sharded: dict) -> None:
     log(f"[network] kernel launches on phase 7's main path: {r['counts']}")
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: the LM serving path
+# --------------------------------------------------------------------------- #
+
+
+class EmbedProbe:
+    """Stands in for an engine's ``_embed_batch``: each call's time (the
+    card synchronized on both sides) and its float32 embeddings."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.fn, self.calls = torch, eng._embed_batch, []
+        eng._embed_batch = self
+
+    def __call__(self, tokens):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = self.fn(tokens)
+        self.torch.cuda.synchronize()
+        self.calls.append((time.perf_counter() - t0, emb))
+        return emb
+
+
+def lm_inputs(cfg, seed: int):
+    """Phase 8's seeded tokens: the documents, the query batches (the first
+    one cold) and the generation prompts (the first query prompts)."""
+    rng = np.random.default_rng(seed + 8)
+    docs = rng.integers(0, cfg.vocab_size, (LM_DOCS, LM_DOC_LEN),
+                        dtype=np.int32)
+    prompts = [rng.integers(0, cfg.vocab_size, (QUERIES, LM_PROMPT_LEN),
+                            dtype=np.int32)
+               for _ in range(1 + LM_QUERY_BATCHES)]
+    return docs, prompts, prompts[0][:GEN_PROMPTS]
+
+
+def lm_generate_parts(torch, eng, tf, docs, gen_prompts, gen) -> dict:
+    """``generate``'s two parts as the engine calls them, timed with CUDA
+    events: the prefill of the augmented prompt and the greedy decode,
+    whose tokens must be ``gen``, generate's own. The augmented prompt must
+    be the top hit's first LM_CONTEXT tokens before the prompt, and its
+    prefill logits must differ from the bare prompt's: the retrieved
+    context reaches the model."""
+    aug = eng._augmented(gen_prompts)
+    top = eng.retrieve(gen_prompts)[0][:, 0]
+    if not (np.array_equal(aug[:, LM_CONTEXT:], gen_prompts) and
+            np.array_equal(aug[:, :LM_CONTEXT], docs[top, :LM_CONTEXT])):
+        raise AssertionError("the augmented prompt != the top hit's tokens "
+                             "+ the prompt")
+    p, cfg, s_cache = eng.params, eng.cfg, eng.sc.s_cache
+
+    def prefill(tokens):
+        return tf.prefill(p, {"tokens": eng._tokens(tokens)}, cfg, s_cache)
+
+    with torch.no_grad():
+        prefill_ms = cuda_ms(torch, lambda: prefill(aug), iters=3, warmup=1)
+        logits, caches = prefill(aug)
+        ctx_diff = float((logits - prefill(gen_prompts)[0]).abs().max())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = tf.greedy_decode(p, logits, caches, aug.shape[1], GEN_NEW, cfg)
+        end.record()
+        torch.cuda.synchronize()
+    if not ctx_diff > 0:
+        raise AssertionError("the augmented prompt's prefill logits equal "
+                             "the bare prompt's")
+    if not np.array_equal(out.cpu().numpy(), gen):
+        raise AssertionError("the timed prefill + decode != generate's tokens")
+    return {"prefill_ms": prefill_ms, "ctx_logit_diff": ctx_diff,
+            "decode_ms": start.elapsed_time(end) / (GEN_NEW - 1)}
+
+
+def lm_numerics(torch, dev, tf, boundary, params, cfg, tokens) -> dict:
+    """The model's first local/global pair (layers 0-1) and its head: a
+    copy on the CPU in f32 against the card in f32 (the pooled embeddings
+    of ``tokens``; the logits of generate's prefill length and of
+    LM_NUMERICS_STEPS teacher-forced decode steps, with the main path's
+    s_cache and with half the prefill's length, so that the prefill keeps
+    its last positions and the decode writes wrap), and the card's bf16
+    embeddings against the CPU's f32 ones after the boundary."""
+    import copy
+    pair = torch.nn.Module()
+    pair.embed = params.embed
+    pair.blocks = torch.nn.ModuleList(list(params.blocks)[:2])
+    pair.final_norm = params.final_norm
+    if not cfg.tie_embeddings:
+        pair.lm_head = params.lm_head
+    bf16 = dataclasses.replace(cfg, num_layers=2)
+    f32 = dataclasses.replace(bf16, dtype="float32")
+    t0 = time.perf_counter()
+    cpu_pair = copy.deepcopy(pair).to("cpu")
+    copy_s = time.perf_counter() - t0
+    n_pre = LM_CONTEXT + LM_PROMPT_LEN  # generate's prefill length
+    seq = np.concatenate([tokens, tokens], 1)[:, :n_pre + LM_NUMERICS_STEPS]
+    s_caches = (LM_S_CACHE, n_pre // 2)
+
+    def decode(p, toks, s_cache):
+        """[B, 1 + steps, V]: the prefill's logits, then each step's."""
+        logits, caches = tf.prefill(p, {"tokens": toks[:, :n_pre]}, f32,
+                                    s_cache)
+        out = [logits]
+        for t in range(n_pre, toks.shape[1]):
+            pos = torch.full((toks.shape[0], 1), t, dtype=torch.int32,
+                             device=toks.device)
+            logits, caches = tf.decode_step(p, caches, toks[:, t:t + 1], pos,
+                                            f32)
+            out.append(logits)
+        return torch.stack(out, 1)
+
+    def run(p, dv):
+        toks, s_toks = (torch.as_tensor(x, device=dv) for x in (tokens, seq))
+        return (tf.pooled_embedding(p, toks, f32),
+                [decode(p, s_toks, s) for s in s_caches])
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        e_cpu, l_cpu = run(cpu_pair, "cpu")
+        cpu_s = time.perf_counter() - t0
+        e_card, l_card = run(pair, dev)
+        e_card, l_card = e_card.cpu(), [x.cpu() for x in l_card]
+        e_bf16 = tf.pooled_embedding(pair, torch.as_tensor(tokens, device=dev),
+                                     bf16).cpu()
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    def words(a, b):
+        ra = boundary.normalize_embedding(a).to(torch.int64)
+        rb = boundary.normalize_embedding(b).to(torch.int64)
+        diff = (ra - rb).abs()
+        return int((diff != 0).sum()), int(diff.max()), diff.numel()
+
+    logit_rel = {s: [rel(g[:, i], w[:, i]) for i in range(g.shape[1])]
+                 for s, g, w in zip(s_caches, l_card, l_cpu)}
+    out = dict(emb_rel=rel(e_card, e_cpu), logit_rel=logit_rel, n_pre=n_pre,
+               words_f32=words(e_card, e_cpu), words_bf16=words(e_bf16, e_cpu),
+               bf16_rel=rel(e_bf16, e_cpu), copy_s=copy_s, cpu_s=cpu_s,
+               finite=bool(torch.isfinite(e_bf16).all() and all(
+                   torch.isfinite(x).all() for x in l_card)))
+    if not out["finite"]:
+        raise AssertionError("lm numerics: non-finite values")
+    worst = max(max(v) for v in logit_rel.values())
+    if max(out["emb_rel"], worst) > LM_F32_REL_TOL:
+        raise AssertionError(
+            f"the first pair in f32: card against CPU {out['emb_rel']:.3g} "
+            f"(embeddings), {worst:.3g} (prefill and decode logits) > "
+            f"{LM_F32_REL_TOL}")
+    return out
+
+
+def run_lm_durable(torch, dev, cfg, params, docs, gen_prompts) -> dict:
+    """The durable LM engine over SIDE_CAPACITY rows: ingest, crash (the
+    engine dropped without ``close``), recover to the same (t, hash) with
+    the doc cache reloaded from ``docs.sdt``, the same generation, then
+    ``rollback_to`` the checkpoint with every live id's tokens warm (the
+    rolled-away ids' records stay loaded and inert, as in the reference)."""
+    from repro_torch.serve.engine import MemoryAugmentedEngine, ServeConfig
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sc = ServeConfig(capacity=SIDE_CAPACITY, retrieve_k=K, ef=EF,
+                         s_cache=LM_S_CACHE, context_tokens=LM_CONTEXT,
+                         max_new_tokens=GEN_NEW, durable_dir=tmp,
+                         checkpoint_every=LM_CHECKPOINT_EVERY)
+        eng = timed("engine + genesis snapshot", lambda: MemoryAugmentedEngine(
+            cfg, params, sc, device=dev))
+        h_at = {}
+        for i in range(0, LM_DURABLE_DOCS, LM_DURABLE_BATCH):
+            timed(f"ingest {i}-{i + LM_DURABLE_BATCH}",
+                  lambda i=i: eng.insert_documents(
+                      docs[i:i + LM_DURABLE_BATCH]))
+            h_at[eng._cursor()] = eng.state_hash()
+        timed("wait for the checkpoint", eng.wait_durable)
+        t_pre, h_pre = eng.durable.t, eng.state_hash()
+        gen_pre = timed("generate", lambda: eng.generate(gen_prompts))
+        snaps = eng.durable.snapshots()
+        del eng  # the crash: no close, no flush
+
+        eng = MemoryAugmentedEngine(cfg, params, sc, device=dev)
+        t, h = timed("recover", eng.recover)
+        if (t, h) != (t_pre, h_pre):
+            raise AssertionError(f"durable LM recover: ({t}, {h:#x}) != "
+                                 f"({t_pre}, {h_pre:#x})")
+        if sorted(eng.docs) != list(range(LM_DURABLE_DOCS)) or any(
+                not np.array_equal(eng.docs[i], docs[i])
+                for i in range(LM_DURABLE_DOCS)):
+            raise AssertionError("recovered doc cache != the ingested tokens")
+        gen_post = timed("generate after recover",
+                         lambda: eng.generate(gen_prompts))
+        if not np.array_equal(gen_pre, gen_post):
+            raise AssertionError("generate after recover != before the crash")
+        t_rb, h_rb = timed("rollback_to the checkpoint",
+                           lambda: eng.rollback_to(LM_CHECKPOINT_EVERY))
+        live = sorted(eng.memory.ids[eng.memory.valid].cpu().tolist())
+        if h_rb != h_at[LM_CHECKPOINT_EVERY] \
+                or live != list(range(LM_CHECKPOINT_EVERY)) \
+                or sorted(eng.docs) != list(range(LM_DURABLE_DOCS)) \
+                or any(not np.array_equal(eng.docs[i], docs[i]) for i in live):
+            raise AssertionError("rollback: hash or warm doc cache differs")
+        eng.close()
+    return dict(times=times, t=t, h=h, snaps=snaps, t_rb=t_rb, h_rb=h_rb,
+                gen=gen_post)
+
+
+def run_lm(torch, dev, seed: int, cfg=None) -> dict:
+    """Phase 8: gemma2-2b at full width on the card (``cfg`` replaces it in
+    a CPU rehearsal), served by ``MemoryAugmentedEngine(cfg, params,
+    ...)``: token ingest, retrieval on the auto route (exact at LM_DOCS
+    live rows), augmented generation twice, the audit; the card's boundary
+    against the CPU's on one ingest batch; the first pair's numerics; the
+    durable LM engine. Returns the times, the checks' values and the
+    kernel launches of the phase's main path."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import boundary
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import MemoryAugmentedEngine, ServeConfig
+
+    cfg = cfg or get_config(LM_ARCH)
+    docs, prompts, gen_prompts = lm_inputs(cfg, seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"cfg": cfg}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(dev).manual_seed(seed))
+    params.requires_grad_(False)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["n_params"] = sum(p.numel() for p in params.parameters())
+    want = dataclasses.replace(cfg, vocab_size=cfg.padded_vocab).param_count()
+    if out["n_params"] != want:
+        raise AssertionError(f"{out['n_params']} parameters != {want}")
+    eng = MemoryAugmentedEngine(cfg, params, ServeConfig(
+        capacity=CAPACITY, retrieve_k=K, ef=EF, s_cache=LM_S_CACHE,
+        context_tokens=LM_CONTEXT, max_new_tokens=GEN_NEW), device=dev)
+    probe = EmbedProbe(torch, eng)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()  # ---- the main path starts here ----
+    ingest_s = []
+    for i in range(0, LM_DOCS, BATCH):
+        t0 = time.perf_counter()
+        eng.insert_documents(docs[i:i + BATCH])
+        torch.cuda.synchronize()
+        ingest_s.append(time.perf_counter() - t0)
+    n_ingest = len(ingest_s)
+    read_ms, embed_ms, answers = [], [], []
+    for q in prompts:
+        n0 = len(probe.calls)
+        t0 = time.perf_counter()
+        answers.append(eng.retrieve(q))
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+        embed_ms.append(probe.calls[n0][0] * 1e3)
+    out["plan"] = eng.last_plan
+    gens, gen_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        gens.append(eng.generate(gen_prompts))
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()  # ---- the main path ends here ----
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if min(counts[name] for name in LM_KERNELS) < 1:
+        raise AssertionError(f"a kernel of the LM path never launched: "
+                             f"{counts}")
+    if out["plan"].route != "exact":
+        raise AssertionError(f"auto route at {LM_DOCS} rows: "
+                             f"{out['plan'].route}, not exact")
+    for ids, _ in answers:
+        if ids.shape != (QUERIES, K) or (ids < 0).any() \
+                or (ids >= LM_DOCS).any():
+            raise AssertionError("lm retrieve: malformed answer")
+    if not np.array_equal(gens[0], gens[1]):
+        raise AssertionError("generate did not repeat itself")
+    if gens[0].shape != (GEN_PROMPTS, GEN_NEW) or gens[0].min() < 0 \
+            or gens[0].max() >= cfg.vocab_size:
+        raise AssertionError("generate: malformed tokens")
+
+    t0 = time.perf_counter()
+    h_state, h_replay = eng.state_hash(), eng.replay_log_fresh()
+    out["audit_s"] = time.perf_counter() - t0
+    if h_state != h_replay:
+        raise AssertionError("lm engine: replay_log_fresh() != state_hash()")
+    # the card's boundary against the CPU's, on one ingest batch's floats
+    emb = probe.calls[0][1].cpu()
+    raw = boundary.normalize_embedding(emb, eng.sc.contract)
+    if not (bool(torch.isfinite(emb).all())
+            and torch.equal(raw, eng.log.vec[:BATCH].cpu())):
+        raise AssertionError("the CPU's boundary != the rows the card logged")
+    out["steps"] = lm_generate_parts(torch, eng, tf, docs, gen_prompts,
+                                     gens[0])
+    out["numerics"] = lm_numerics(torch, dev, tf, boundary, params, cfg,
+                                  docs[:LM_NUMERICS_DOCS])
+    out.update(
+        counts=counts, h_state=h_state, memory_hash=eng.memory_hash(),
+        ingest_s=ingest_s, embed_ingest_s=[probe.calls[i][0]
+                                           for i in range(n_ingest)],
+        read_ms=read_ms, embed_ms=embed_ms, gen_s=gen_s, gen=gens[0])
+    eng.close()
+    del eng, probe
+    out["durable"] = run_lm_durable(torch, dev, cfg, params, docs,
+                                    gen_prompts)
+    return out
+
+
+def report_lm(r) -> None:
+    cfg, card = r["cfg"], CARD[0]
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"vocabulary {cfg.vocab_size}, {cfg.dtype} compute over "
+        f"{cfg.param_dtype} parameters: {r['n_params']} parameters, "
+        f"initialized on the card in {r['init_s']:.3f} s ({card})")
+    n = len(r["ingest_s"])
+    emb, tot = r["embed_ingest_s"], r["ingest_s"]
+    log(f"[lm] ingest {LM_DOCS} docs of {LM_DOC_LEN} tokens in {n} batches "
+        f"of {BATCH}: {sum(tot):.3f} s = {LM_DOCS / sum(tot):.1f} docs/s; "
+        f"LM embed per batch " + ", ".join(f"{1e3 * e:.1f}" for e in emb)
+        + " ms; boundary + apply per batch " + ", ".join(
+            f"{1e3 * (t - e):.1f}" for t, e in zip(tot, emb)) + f" ms ({card})")
+    warm = list(zip(r["read_ms"][1:], r["embed_ms"][1:]))
+    med = statistics.median
+    log(f"[lm] retrieve {QUERIES} prompts of {LM_PROMPT_LEN} tokens, k={K}, "
+        f"route {r['plan'].route} ({r['plan'].reason}): cold "
+        f"{r['read_ms'][0]:.3f} ms, then {len(warm)} batches p50 "
+        f"{med(a for a, _ in warm):.3f} ms = embed p50 "
+        f"{med(e for _, e in warm):.3f} + search p50 "
+        f"{med(a - e for a, e in warm):.3f} ({card})")
+    st = r["steps"]
+    toks = GEN_PROMPTS * GEN_NEW
+    log(f"[lm] generate {GEN_PROMPTS} x {GEN_NEW} tokens, augmented with "
+        f"{LM_CONTEXT} context tokens: {r['gen_s'][0]:.3f} s, then "
+        f"{r['gen_s'][1]:.3f} s = {toks / r['gen_s'][1]:.1f} tokens/s, the "
+        f"same tokens both times; prefill [{GEN_PROMPTS}, "
+        f"{LM_CONTEXT + LM_PROMPT_LEN}] {st['prefill_ms']:.3f} ms, decode "
+        f"{st['decode_ms']:.3f} ms per step (CUDA events; {card}); the "
+        f"augmented prompt's prefill logits differ from the bare prompt's "
+        f"by up to {st['ctx_logit_diff']:.4g}")
+    log(f"[lm] peak device memory {r['peak_bytes'] / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated; {card})")
+    log(f"[lm] audit: replay_log_fresh == state_hash {r['h_state']:#018x} "
+        f"({r['audit_s']:.1f} s); memory_hash {r['memory_hash']:#018x}; "
+        f"first generated tokens {r['gen'][0, :8].tolist()}")
+    log(f"[lm] boundary: the card's float embeddings of ingest batch 0, "
+        f"normalized on the CPU, equal the rows the card logged, bit for bit")
+    nm = r["numerics"]
+    log(f"[lm] first local/global pair + head in f32, card against CPU: "
+        f"max relative error {nm['emb_rel']:.3g} (pooled embeddings); "
+        + "; ".join(
+            f"s_cache {s}: prefill [{LM_NUMERICS_DOCS}, {nm['n_pre']}] "
+            f"logits {v[0]:.3g}, teacher-forced decode steps "
+            + ", ".join(f"{x:.3g}" for x in v[1:])
+            for s, v in nm["logit_rel"].items())
+        + f"; tolerance {LM_F32_REL_TOL}; copy to the CPU "
+        f"{nm['copy_s']:.1f} s, CPU run {nm['cpu_s']:.1f} s")
+    for name in ("words_f32", "words_bf16"):
+        k, mx, total = nm[name]
+        log(f"[lm] after the boundary: {k} of {total} Q16.16 words differ "
+            f"(max {mx}) between the card's "
+            f"{'f32' if name == 'words_f32' else 'bf16'} pair embeddings "
+            f"and the CPU's f32 ones"
+            + (f" (relative error before it {nm['bf16_rel']:.3g})"
+               if name == "words_bf16" else ""))
+    d = r["durable"]
+    for name, secs in d["times"].items():
+        log(f"[lm] durable {name}: {secs:.3f} s ({card})")
+    log(f"[lm] durable LM engine ({SIDE_CAPACITY} rows, checkpoint_every="
+        f"{LM_CHECKPOINT_EVERY}, snapshots {d['snaps']}): recover -> t="
+        f"{d['t']} {d['h']:#018x} == before the crash, doc cache reloaded "
+        f"from docs.sdt, the same {GEN_PROMPTS} x {GEN_NEW} tokens; "
+        f"rollback_to({d['t_rb']}) -> {d['h_rb']:#018x} with every live "
+        f"id's tokens cached")
+    log(f"[lm] kernel launches on phase 8's main path: {r['counts']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    # 4096 by default keeps the whole run inside its time limit with phase
-    # 6; --docs 8192 reproduces the hashes PERF.md records for it
-    ap.add_argument("--docs", type=int, default=4096,
+    # 3072 by default keeps the whole run inside its time limit with
+    # phases 6-8; --docs 4096 and 8192 reproduce the hashes PERF.md records
+    # for them
+    ap.add_argument("--docs", type=int, default=3072,
                     help="documents phase 3 ingests (a multiple of 512, at "
                     "least 2048)")
     ap.add_argument("--seed", type=int, default=0)
@@ -2158,12 +2591,18 @@ def main() -> int:
     log(f"[network] phase 7 in {time.perf_counter() - t0:.1f} s "
         f"({CARD[0]})")
 
+    t0 = time.perf_counter()
+    lm = run_lm(torch, dev, args.seed)
+    report_lm(lm)
+    log(f"[lm] phase 8 in {time.perf_counter() - t0:.1f} s ({CARD[0]})")
+
     kern = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/kernels/csrc/{name}.cu",
                  replaces=REPLACES[name], launches=counts[name],
                  launches_durable=durable["counts"][name],
                  launches_sharded=sharded["counts"][name],
                  launches_network=network["counts"][name],
+                 launches_lm=lm["counts"][name],
                  max_abs_err=r["max_abs_err"], mismatches=r["mismatches"],
                  ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -1,0 +1,1 @@
+"""The LM stack (the port of ``repro.models``): the dense family."""

@@ -1,0 +1,199 @@
+"""The LM: init / apply / prefill / decode (the port of
+``repro.models.transformer``, dense family).
+
+The reference scans stacked layer params (``[n, ...]`` leaves, or ``a``/
+``b`` stacks of local/global pairs for gemma2); here the layers are one
+``nn.ModuleList`` in layer order and the stack is a Python loop. Layer i
+is local (sliding window) when ``cfg.layer_is_local(i)``: every layer
+under swa, the even layers (the reference's ``a`` of pair i/2) under
+local_global. ``models.convert`` carries the reference's tree across.
+
+Parameters are float32 masters cast to the compute dtype at every use;
+norms, RoPE, the softmax and the logits after the head are float32.
+Caches are one ``{k, v, pos}`` dict per layer, written in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import blocks as blk
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.initializers import embed_init
+from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers.norms import RMSNorm, rmsnorm
+
+Caches = List[attn_lib.Cache]
+
+
+class Transformer(nn.Module):
+    """``embed`` [padded_vocab, D], ``blocks`` (one ``DecoderBlock`` per
+    layer), ``final_norm`` and, untied, ``lm_head`` [D, padded_vocab]."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family is not ported "
+                "(ROADMAP.md Queue 1)")
+        if cfg.attn_pattern == "local_global" and cfg.num_layers % 2:
+            raise ValueError("local_global needs an even layer count")
+        pd = cfg.params_dtype
+        # vocab rows padded to vocab_pad_multiple; padded logits are masked
+        # in _head
+        self.embed = nn.Parameter(
+            embed_init(generator, (cfg.padded_vocab, cfg.d_model), pd))
+        self.blocks = nn.ModuleList(
+            blk.DecoderBlock(generator, cfg) for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg.d_model, pd, generator.device)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(
+                embed_init(generator, (cfg.d_model, cfg.padded_vocab), pd))
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
+    """Initialize on ``generator.device`` from its state: the same seed on
+    the same device gives the same weights."""
+    return Transformer(cfg, generator)
+
+
+# --------------------------------------------------------------------------- #
+# caches
+# --------------------------------------------------------------------------- #
+
+
+def init_caches(cfg: ModelConfig, batch: int, s_cache: int, device
+                ) -> Caches:
+    """Decode state, one cache per layer: ``s_cache`` slots, or
+    min(window, s_cache) on sliding-window layers."""
+    w = min(cfg.sliding_window, s_cache)
+    return [attn_lib.init_cache(batch, w if cfg.layer_is_local(i) else s_cache,
+                                cfg, device)
+            for i in range(cfg.num_layers)]
+
+
+# --------------------------------------------------------------------------- #
+# trunk
+# --------------------------------------------------------------------------- #
+
+
+def _run_stack(params: Transformer, h: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig, mode: str, caches: Optional[Caches]
+               ) -> Tuple[torch.Tensor, Optional[Caches]]:
+    """Every layer in order; returns (h, caches). (The reference also
+    returns the MoE balance loss, which the dense family does not have.)"""
+    new_caches = [] if caches is not None else None
+    for i, layer in enumerate(params.blocks):
+        h, nc = blk.decoder_block(
+            layer, h, positions, cfg, local=cfg.layer_is_local(i), mode=mode,
+            cache_slice=None if caches is None else caches[i])
+        if new_caches is not None:
+            new_caches.append(nc)
+    return h, new_caches
+
+
+# --------------------------------------------------------------------------- #
+# public entry points
+# --------------------------------------------------------------------------- #
+
+
+def _embed(params: Transformer, batch: Dict[str, torch.Tensor],
+           cfg: ModelConfig) -> torch.Tensor:
+    h = params.embed[batch["tokens"].long()].to(cfg.compute_dtype)
+    if cfg.scale_embeddings:
+        # the scale is rounded to the compute dtype before the multiply
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype,
+                             device=h.device)
+    return h
+
+
+def _head(params: Transformer, h: torch.Tensor, cfg: ModelConfig
+          ) -> torch.Tensor:
+    h = rmsnorm(params.final_norm, h, cfg.rms_eps)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bld,vd->blv", h, params.embed.to(h.dtype))
+    else:
+        logits = torch.einsum("bld,dv->blv", h, params.lm_head.to(h.dtype))
+    logits = logits.to(torch.float32)
+    if cfg.final_logit_softcap:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    if cfg.padded_vocab != cfg.vocab_size:
+        # padded rows never win: mask to a large negative
+        v = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = torch.where(v[None, None, :] < cfg.vocab_size, logits,
+                             -1e30)
+    return logits
+
+
+def _positions(B: int, L: int, device) -> torch.Tensor:
+    return torch.arange(L, dtype=torch.int32, device=device)[None].expand(B, L)
+
+
+def apply(params: Transformer, batch: Dict[str, torch.Tensor],
+          cfg: ModelConfig) -> torch.Tensor:
+    """Training/eval forward: full-sequence logits [B, L, V]. (The
+    reference returns (logits, aux); aux is MoE-only.)"""
+    h = _embed(params, batch, cfg)
+    B, L = h.shape[0], h.shape[1]
+    h, _ = _run_stack(params, h, _positions(B, L, h.device), cfg, "train",
+                      None)
+    return _head(params, h, cfg)
+
+
+def prefill(params: Transformer, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, s_cache: int) -> Tuple[torch.Tensor, Caches]:
+    """Process a prompt; return (last-position logits [B, V], caches)."""
+    h = _embed(params, batch, cfg)
+    B, L = h.shape[0], h.shape[1]
+    caches = init_caches(cfg, B, s_cache, h.device)
+    h, caches = _run_stack(params, h, _positions(B, L, h.device), cfg,
+                           "prefill", caches)
+    logits = _head(params, h[:, -1:], cfg)
+    return logits[:, 0], caches
+
+
+def decode_step(params: Transformer, caches: Caches, tokens: torch.Tensor,
+                positions: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, Caches]:
+    """One decode step. tokens [B, 1]; positions [B, 1]. Returns (logits
+    [B, V], caches) — the caches updated in place."""
+    h = _embed(params, {"tokens": tokens}, cfg)
+    h, caches = _run_stack(params, h, positions, cfg, "decode", caches)
+    logits = _head(params, h, cfg)
+    return logits[:, 0], caches
+
+
+def pooled_embedding(params: Transformer, tokens: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """The memory engine's embedding of documents and prompts: tokens
+    [B, L] through the stack in "train" mode without caches, the final
+    hidden states (before the final norm) averaged over L in float32 →
+    [B, D]."""
+    h = _embed(params, {"tokens": tokens}, cfg)
+    B, L = h.shape[:2]
+    h, _ = _run_stack(params, h, _positions(B, L, h.device), cfg, "train",
+                      None)
+    return torch.mean(h.to(torch.float32), dim=1)
+
+
+def greedy_decode(params: Transformer, logits: torch.Tensor, caches: Caches,
+                  start: int, n_new: int, cfg: ModelConfig) -> torch.Tensor:
+    """Greedy continuation of a prefilled prompt of ``start`` tokens:
+    ``logits`` [B, V] are ``prefill``'s. Ties in the argmax go to the first
+    index. Returns [B, n_new] int32 after n_new - 1 decode steps (the
+    reference's last step only feeds a discarded token)."""
+    B = logits.shape[0]
+    out = torch.empty((B, n_new), dtype=torch.int32, device=logits.device)
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    for t in range(n_new):
+        out[:, t] = tok[:, 0]
+        if t + 1 == n_new:
+            break
+        pos = torch.full((B, 1), start + t, dtype=torch.int32,
+                         device=logits.device)
+        logits, caches = decode_step(params, caches, tok, pos, cfg)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    return out

@@ -1,20 +1,33 @@
-"""Memory-augmented serving engine: flat, sharded or networked, in memory
-or durable, with verified read replicas.
+"""Memory-augmented serving engine: an LM, the boundary and the memory —
+flat, sharded or networked, in memory or durable, with verified read
+replicas.
 
 The port of ``repro.serve.engine``: the paper's §5.3 boundary, the audit
 trail, durability, sharding, shard hosts over the wire and read replicas.
 
-  embedding (float32) ──boundary.normalize──▶ INSERT log ──bulk_apply──▶ state
-  query (float32)     ──boundary.admit_query──▶ planned exact / HNSW /
-                                               coarse (int8 code table) k-NN
+  tokens ──LM (float, bf16 on the card)──▶ pooled embedding (float32)
+  embedding ──boundary.normalize──▶ INSERT log ──bulk_apply──▶ state
+  query     ──boundary.admit_query──▶ planned exact / HNSW / coarse
+                                       (int8 code table) k-NN
 
-The engine takes the float32 embeddings ``[B, d]`` that the reference
-engine's embedder produces; everything after that point follows the
-reference step for step (id allocation, canonical batch logs, the re-link
-schedule, ``relink_ts`` and ``graph_gen``, the code table's lazy build,
-refresh and drop), so the same embeddings give the same ``state_hash``,
-``memory_hash`` and ``retrieval_hash``. The LM that produces embeddings,
-and ``generate``, arrive with a later slice.
+Two forms share the class:
+
+* ``MemoryAugmentedEngine(cfg, params, serve_cfg)`` — the reference's
+  engine: documents and prompts are token arrays. ``_embed_batch`` runs the
+  LM's stack (no caches) and pools the final hidden states (float32 mean
+  over positions); ``generate`` decodes greedily, the prompt prefixed with
+  the top hit's tokens. Nothing before the boundary is bit-reproducible
+  across devices (the card's bf16 LM does not equal the CPU's); everything
+  from ``normalize_embedding`` on is.
+* ``MemoryAugmentedEngine(d_model, serve_cfg)`` — the embedding engine:
+  the caller brings float32 embeddings ``[N, d_model]`` (what the
+  reference's embedder produces) and there is no LM and no ``generate``.
+
+Everything after the embedding follows the reference step for step (id
+allocation, canonical batch logs, the re-link schedule, ``relink_ts`` and
+``graph_gen``, the code table's lazy build, refresh and drop), so the same
+embeddings give the same ``state_hash``, ``memory_hash`` and
+``retrieval_hash`` in both forms and both packages.
 
 Durable mode (``durable_dir``, DESIGN.md §5-§7) follows the reference too:
 every ingested batch is WAL-appended to a ``DurableStore`` before its
@@ -23,10 +36,12 @@ effects are visible (or, with ``group_commit``, buffered in a
 the sync-on-read barrier); ``checkpoint_every`` cuts background snapshots
 of a host copy of the state, one in flight at a time; ``retain_snapshots``
 and ``compaction`` age and fold the history; ``recover()`` and
-``rollback_to()`` rebuild the state on the engine's device. The reference
-engine also keeps a durable doc side table (``docs.sdt``) of LM token
-prefixes; this engine has no tokens, so the table waits for the LM slice.
-It is a cache, not state, so no hash depends on it.
+``rollback_to()`` rebuild the state on the engine's device. The LM engine
+keeps its doc cache (token prefixes by id) in a durable side table,
+``docs.sdt``, whose records are synced before the commands they describe
+(through the writer's ``pre_flush`` under group commit), so a recovered
+engine generates with warm context and a live id never outruns its
+tokens. It is a cache, not state: no hash depends on it.
 
 Three serving modes share the class, as in the reference (DESIGN.md
 §7-§9):
@@ -61,7 +76,7 @@ from __future__ import annotations
 import dataclasses
 import pathlib
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -71,9 +86,11 @@ from repro_torch.core import (boundary, codes, commands, distributed,
                               shard_wal, snapshot)
 from repro_torch.core import wal as wal_lib
 from repro_torch.core.contracts import DEFAULT_CONTRACT, PrecisionContract
-from repro_torch.core.durability import DurableStore
+from repro_torch.core.durability import DurableStore, SideTable
 from repro_torch.core.shard_wal import ShardedDurableStore
 from repro_torch.core.state import MemoryState, init_state, resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.models.config import ModelConfig
 
 
 @dataclasses.dataclass
@@ -111,7 +128,18 @@ def _host_port(address: str) -> Tuple[str, int]:
 
 
 class MemoryAugmentedEngine:
-    def __init__(self, d_model: int, serve_cfg: ServeConfig, *, device=None):
+    def __init__(self, cfg: Union[ModelConfig, int], params, serve_cfg=None,
+                 *, device=None):
+        """``(cfg, params, serve_cfg)``: the LM engine, ``params`` a
+        ``models.transformer.Transformer`` on the engine's device.
+        ``(d_model, serve_cfg)``: the embedding engine."""
+        if isinstance(cfg, ModelConfig):
+            d_model = cfg.d_model
+        else:
+            if serve_cfg is not None:
+                raise TypeError("the embedding engine takes (d_model, "
+                                "serve_cfg)")
+            d_model, serve_cfg, cfg, params = int(cfg), params, None, None
         n = serve_cfg.shards
         if n < 1:
             raise ValueError(f"shards must be >= 1, got {n}")
@@ -138,6 +166,13 @@ class MemoryAugmentedEngine:
                 f"capacity {serve_cfg.capacity} must divide evenly across "
                 f"{n} shards")
         self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        if params is not None and params.embed.device != \
+                torch.empty(0, device=self.device).device:
+            raise ValueError(
+                f"params are on {params.embed.device}, the engine on "
+                f"{self.device}: place them where the engine runs")
         self.d_model = d_model
         self.sc = serve_cfg
         self.n_shards = n
@@ -159,6 +194,7 @@ class MemoryAugmentedEngine:
                                       device=self.device)
         self._shard_logs: List[commands.CommandLog] = [
             self._empty_log() for _ in range(n)]
+        self.docs: Dict[int, np.ndarray] = {}  # id -> token prefix (LM)
         self._next_id = 0
         self.last_plan: Optional[query.QueryPlan] = None
         self.graph_gen = 0
@@ -174,6 +210,7 @@ class MemoryAugmentedEngine:
         self.durable = None  # DurableStore | ShardedDurableStore | None
         self._clients = None  # net.RemoteShardClient fleet (hosts mode)
         self._group: Optional[wal_lib.GroupCommitWriter] = None
+        self._doc_table: Optional[SideTable] = None
         self._ckpt_thread: Optional[threading.Thread] = None
         self._ckpt_error: Optional[BaseException] = None
         self._last_ckpt_t = 0
@@ -200,9 +237,17 @@ class MemoryAugmentedEngine:
                 self.durable = ShardedDurableStore(
                     serve_cfg.durable_dir, self.memory, n_shards=n,
                     compaction=serve_cfg.compaction, device=self.device)
+            if cfg is not None:
+                # the doc cache's side table: its records are synced before
+                # the commands they describe (directly, or in the writer's
+                # pre_flush under group commit)
+                self._doc_table = SideTable(
+                    pathlib.Path(serve_cfg.durable_dir) / "docs.sdt")
             if serve_cfg.group_commit is not None:
                 self._group = wal_lib.GroupCommitWriter(
-                    self.durable, serve_cfg.group_commit)
+                    self.durable, serve_cfg.group_commit,
+                    pre_flush=None if self._doc_table is None
+                    else self._doc_table.sync)
         elif (serve_cfg.group_commit is not None
               or serve_cfg.compaction is not None):
             # an operator who set a durability policy believes ingest is
@@ -272,7 +317,8 @@ class MemoryAugmentedEngine:
             else self._genesis_state()
         if not self._layout_sharded:
             primaries = [lambda: LocalPrimary(
-                self.durable, state_fn=lambda: self.memory)]
+                self.durable, state_fn=lambda: self.memory,
+                side_table=self._doc_table)]
             geneses = [genesis]
         else:
             if self._clients is not None:
@@ -288,7 +334,8 @@ class MemoryAugmentedEngine:
                     return lambda: LocalPrimary(
                         self.durable.shards[s],
                         state_fn=lambda: distributed.shard_slice(
-                            self.memory, s, self.n_shards))
+                            self.memory, s, self.n_shards),
+                        side_table=self._doc_table)
             primaries = [primary(s) for s in range(self.n_shards)]
             geneses = [distributed.shard_slice(genesis, s, self.n_shards)
                        for s in range(self.n_shards)]
@@ -347,18 +394,60 @@ class MemoryAugmentedEngine:
     # WRITE path
     # ------------------------------------------------------------------ #
 
-    def insert_documents(self, embeddings) -> List[int]:
-        """float32 embeddings [N, d] → ids, through the boundary and one
-        canonical INSERT batch applied with ``machine.bulk_apply``."""
-        emb = self._as_f32(embeddings)
-        n = emb.shape[0]
-        if n == 0:
+    # ------------------------------------------------------------------ #
+    # embedding: pooled final hidden states (pre-head)
+    # ------------------------------------------------------------------ #
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens), device=self.device)
+
+    @torch.no_grad()
+    def _embed_batch(self, tokens) -> torch.Tensor:
+        """tokens [B, L] → float32 [B, D] (``transformer.pooled_embedding``)."""
+        return tf.pooled_embedding(self.params, self._tokens(tokens), self.cfg)
+
+    def _embed(self, x) -> torch.Tensor:
+        """Documents or prompts → float32 embeddings: token arrays through
+        the LM, or the embedding engine's own float32 input."""
+        if self.cfg is None:
+            return self._as_f32(x)
+        return self._embed_batch(x)
+
+    def _require_lm(self) -> None:
+        if self.cfg is None:
+            raise ValueError("the embedding engine has no LM: build the "
+                             "engine as (cfg, params, serve_cfg)")
+
+    # ------------------------------------------------------------------ #
+    # WRITE path
+    # ------------------------------------------------------------------ #
+
+    def insert_documents(self, documents) -> List[int]:
+        """Documents → ids, through the boundary and one canonical INSERT
+        batch applied with ``machine.bulk_apply``. The LM engine takes
+        token arrays [N, L] (int32), records each in the doc cache and, in
+        durable mode, its side table; the embedding engine takes float32
+        embeddings [N, d]."""
+        if len(documents) == 0:
             return []
+        emb = self._embed(documents)
+        n = emb.shape[0]
         raw = boundary.normalize_embedding(emb, self.sc.contract)
         ids = torch.arange(self._next_id, self._next_id + n, dtype=torch.int64,
                            device=self.device)
         self._next_id += n
         batch_log = commands.insert_batch(ids, raw, self.sc.contract)
+        if self.cfg is not None:
+            # doc cache first: its side-table records must be durable no
+            # later than the commands they describe, or a crash after a
+            # rollback-then-reinsert could recover a live id with stale
+            # tokens
+            for i, tid in enumerate(range(self._next_id - n, self._next_id)):
+                doc = np.asarray(documents[i])
+                self.docs[tid] = doc
+                if self._doc_table is not None:
+                    self._doc_table.put(
+                        tid, doc.astype("<i4", copy=False).tobytes())
         self._apply_batch(batch_log)
         self._refresh_code_tables(ids)
         self._cmds_since_relink_check += n
@@ -377,6 +466,11 @@ class MemoryAugmentedEngine:
         before = self.live_count()
         self._apply_batch(batch_log)
         removed = before - self.live_count()
+        for tid in ids.cpu().tolist():
+            # the doc cache drops now; the side table's record stays — a
+            # dead id is never retrieved, and sequential allocation never
+            # reuses it
+            self.docs.pop(tid, None)
         # deletes touch layout-dependent slots; the lazy rebuild is a pure
         # function of the live rows, so it is always bit-identical
         self._code_tables = None
@@ -401,6 +495,8 @@ class MemoryAugmentedEngine:
         if self._group is not None:
             self._group.submit(batch_log, routed=routed)
         elif self.durable is not None:
+            if self._doc_table is not None:
+                self._doc_table.sync()
             if routed is None:
                 self.durable.append(batch_log)
             else:
@@ -486,15 +582,16 @@ class MemoryAugmentedEngine:
     # READ path
     # ------------------------------------------------------------------ #
 
-    def retrieve(self, query_embeddings, k: Optional[int] = None
+    def retrieve(self, queries, k: Optional[int] = None
                  ) -> Tuple[np.ndarray, np.ndarray]:
-        """float32 queries [B, d] → (ids [B, k], scores [B, k]), on the
-        route the planner picks from static facts (``last_plan``)."""
+        """Prompts [B, L] int32 (the LM engine) or float32 queries [B, d]
+        (the embedding engine) → (ids [B, k], scores [B, k]), on the route
+        the planner picks from static facts (``last_plan``)."""
         k = k or self.sc.retrieve_k
         # sync-on-read barrier: nothing un-durable is observable, and the
         # cursor it returns is the read-your-writes floor for replica reads
         flush_t = self.flush()
-        emb = self._as_f32(query_embeddings)
+        emb = self._embed(queries)
         q_raw = boundary.admit_query(emb, self.sc.contract)
         plan = query.plan_query(
             self.live_count(), k, self.sc.ef, use_kernel=self.sc.use_kernel,
@@ -557,9 +654,45 @@ class MemoryAugmentedEngine:
             torch.cat([ids.to(dev) for ids, _ in parts], dim=-1), k)
         return i_out, s_out
 
-    def retrieval_hash(self, query_embeddings, k: Optional[int] = None) -> int:
-        ids, scores = self.retrieve(query_embeddings, k)
+    def retrieval_hash(self, queries, k: Optional[int] = None) -> int:
+        """Platform-invariant hash of the retrieval set for these queries."""
+        ids, scores = self.retrieve(queries, k)
         return query.retrieval_hash(ids, scores)
+
+    # ------------------------------------------------------------------ #
+    # GENERATE
+    # ------------------------------------------------------------------ #
+
+    def _augmented(self, prompt_tokens, augment: bool = True) -> np.ndarray:
+        """The prompt ``generate`` decodes from: [B, L] int32, or with
+        ``augment`` and live rows the top hit's first ``context_tokens``
+        tokens (right-aligned, zeros before a shorter doc) prepended."""
+        prompt_tokens = np.asarray(prompt_tokens, np.int32)
+        B = prompt_tokens.shape[0]
+        if not (augment and self.live_count() > 0):
+            return prompt_tokens
+        ids, _ = self.retrieve(prompt_tokens)
+        ctx = np.zeros((B, self.sc.context_tokens), np.int32)
+        for b in range(B):
+            doc = self.docs.get(int(ids[b, 0]))
+            if doc is not None:
+                n = min(len(doc), self.sc.context_tokens)
+                ctx[b, -n:] = doc[:n]
+        return np.concatenate([ctx, prompt_tokens], axis=1)
+
+    @torch.no_grad()
+    def generate(self, prompt_tokens, *, augment: bool = True) -> np.ndarray:
+        """Greedy decode a batch of prompts [B, L], optionally memory-
+        augmented (``_augmented``). Ties in the argmax go to the first
+        index. Returns [B, max_new_tokens] int32."""
+        self._require_lm()
+        tokens = self._augmented(prompt_tokens, augment)
+        logits, caches = tf.prefill(self.params,
+                                    {"tokens": self._tokens(tokens)},
+                                    self.cfg, self.sc.s_cache)
+        return tf.greedy_decode(self.params, logits, caches, tokens.shape[1],
+                                self.sc.max_new_tokens, self.cfg
+                                ).cpu().numpy()
 
     # ------------------------------------------------------------------ #
     # durability: background checkpoints + crash recovery (DESIGN.md §5, §7)
@@ -571,7 +704,10 @@ class MemoryAugmentedEngine:
         calls this before serving — the sync-on-read barrier — and it is
         the ack point for upstream callers under group commit. With live
         followers it also wakes any replica lagging the cursor by more than
-        the policy's ``max_lag_commands`` (never waits on one)."""
+        the policy's ``max_lag_commands`` (never waits on one). The doc side
+        table syncs here too, so its durability never lags the barrier."""
+        if self._doc_table is not None:
+            self._doc_table.sync()
         if self._group is not None:
             t = self._group.flush()
         else:
@@ -599,6 +735,8 @@ class MemoryAugmentedEngine:
         for pool in self.read_replicas:
             for rep in pool:
                 rep.close()
+        if self._doc_table is not None:
+            self._doc_table.close()
         for c in self._clients or ():
             c.close()
 
@@ -716,9 +854,18 @@ class MemoryAugmentedEngine:
                                 for _ in range(self.n_shards)]
 
     def _reload_serving_caches(self) -> None:
-        """Next-id allocation from the live rows of the recovered state."""
+        """Next-id allocation from the live rows of the recovered state, and
+        the doc cache from its side table (later records for an id win), so
+        the recovered engine generates with warm context at once. Every
+        record is loaded, as the reference does: a deleted or rolled-away
+        id's entry is inert (a dead id is never retrieved, and a reused
+        id's new record replaces it)."""
         live = self.memory.ids[self.memory.valid]
         self._next_id = int(live.max()) + 1 if live.numel() else 0
+        if self._doc_table is not None:
+            self.docs = {
+                key: np.frombuffer(payload, "<i4").astype(np.int32)
+                for key, payload in self._doc_table.entries.items()}
 
     def recover(self) -> Tuple[int, int]:
         """Rebuild memory from the durable store after a crash: nearest

@@ -41,7 +41,16 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.qcoarse.kernel",
             "repro_torch.net.protocol", "repro_torch.net.server",
             "repro_torch.net.client", "repro_torch.net.replica",
-            "repro_torch.runtime.coordinator"} <= set(mods)
+            "repro_torch.runtime.coordinator",
+            "repro_torch.configs", "repro_torch.configs.gemma2_2b",
+            "repro_torch.models.config", "repro_torch.models.initializers",
+            "repro_torch.models.layers.norms",
+            "repro_torch.models.layers.rope",
+            "repro_torch.models.layers.mlp",
+            "repro_torch.models.layers.attention",
+            "repro_torch.models.blocks", "repro_torch.models.transformer",
+            "repro_torch.models.convert",
+            "repro_torch.launch.serve"} <= set(mods)
 
 
 def _imported_names(path):
