@@ -153,7 +153,28 @@ Phases (any failure raises and exits non-zero):
    (``SIDE_CAPACITY`` rows, checkpoint every 512): 768 documents, a crash
    (no ``close``), ``recover()`` to the same ``(t, hash)`` with the doc
    cache reloaded from ``docs.sdt``, the same generated tokens, and
-   ``rollback_to`` the checkpoint with every live id's tokens cached.
+   ``rollback_to`` the checkpoint with every live id's tokens cached;
+9. families — granite-moe-3b-a800m, mamba2-130m and zamba2-2.7b at their
+   CONFIG's full width and depth (bf16 over f32 parameters, from the
+   seed on the card), one after another, each behind
+   ``MemoryAugmentedEngine(cfg, params, ServeConfig(capacity=8192, ...))``:
+   512 token documents of 64 tokens in one batch, 6 batches of 64 prompts
+   on the auto route (exact), 8 x 32 augmented tokens twice (equal), launch
+   counts zeroed before the ingest and read after the generations,
+   ``replay_log_fresh() == state_hash()``, the boundary identity of phase
+   8, the ingest batch's pooled embeddings computed again and equal bit for
+   bit (no atomics in the MoE dispatch), generate's prefill and decode
+   timed; ``torch.backends.cuda.matmul.allow_tf32`` must be off. Then
+   phi3.5-moe at full width with 2 of its 32 layers (its f32 parameters
+   do not fit one card), prefill and greedy decode twice, equal. Each
+   model's depth-cut copy (the first MoE layer, the first 2 mamba layers,
+   or zamba2's first group: a shared block and 6 mamba layers) runs in f32
+   on the card and on the CPU: pooled embeddings, prefill logits and
+   teacher-forced decode steps, the ssm and hybrid copies also over 300
+   tokens (more than one 256-token SSD chunk), held to ``LM_F32_REL_TOL``
+   on the documents whose expert choices agree (the count of differing
+   (token, rank) choices is printed). Phase 2 holds the kernels at phase
+   9's shapes (d = 768, 1536, 2560; 8192 rows).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs the repository's ``src/``
@@ -163,6 +184,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import importlib.util
 import json
 import os
@@ -246,6 +268,22 @@ LM_NUMERICS_STEPS = 4  # teacher-forced decode steps after the prefill
 # pooled embeddings and for the logits of the prefill and of each decode
 # step
 LM_F32_REL_TOL = 1e-4
+# phase 9: the moe, ssm and hybrid LMs at full width and depth (bf16 compute
+# over f32 parameters), each behind the token engine over SIDE_CAPACITY
+# rows: FAMILY_DOCS documents of LM_DOC_LEN tokens in one batch, one cold
+# and FAMILY_QUERY_BATCHES warm batches of QUERIES prompts, GEN_PROMPTS x
+# GEN_NEW tokens twice; then phi3.5-moe at full width with its depth cut
+# to PHI_LAYERS of 32 layers (its 168 GB of f32 parameters do not fit one
+# card), at the model level. The f32 cross-checks of the ssm and hybrid
+# copies also run SSM_LONG tokens: more than one 256-token SSD chunk and
+# not a multiple of it
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "mamba2-130m", "zamba2-2.7b")
+FAMILY_DOCS = 512
+FAMILY_QUERY_BATCHES = 5
+PHI_ARCH = "phi3.5-moe-42b-a6.6b"
+PHI_LAYERS = 2
+SSM_LONG = 300
+LM_WIDTHS = (768, 1536, 2560)  # d_model of mamba2, granite-moe, zamba2
 
 REPLACES = {
     "qboundary": "src/repro/kernels/qboundary/kernel.py:29",
@@ -724,6 +762,58 @@ def check_k_beyond_capacity(torch, dev) -> None:
         log(f"[search] exact_search k={kk} > capacity={cap} on the card: "
             f"shape {tuple(got[0].shape)} and values equal the CPU default "
             f"route's (l2 and dot)")
+
+
+def check_lm_widths(torch, dev, rng) -> dict:
+    """Phase 9's kernel shapes at each of its widths, bit for bit against
+    the plain versions on the card, each then timed as a whole call:
+    qboundary at [FAMILY_DOCS, d] (ingest), [QUERIES, d] (reads) and
+    [GEN_PROMPTS, d] (generate's read), with unit norm and without; qgemm
+    at [QUERIES, d] and [GEN_PROMPTS, d] x [SIDE_CAPACITY, d]; qtopk at
+    [QUERIES, SIDE_CAPACITY] and [GEN_PROMPTS, SIDE_CAPACITY], k = K.
+    Returns {case: ms}."""
+    from repro_torch.core.contracts import Q16_16
+    from repro_torch.kernels.qboundary import ops as qb_ops
+    from repro_torch.kernels.qboundary import ref as qb_ref
+    from repro_torch.kernels.qgemm import ops as qg_ops
+    from repro_torch.kernels.qgemm import ref as qg_ref
+    from repro_torch.kernels.qtopk import ops as qt_ops
+    from repro_torch.kernels.qtopk import ref as qt_ref
+    times = {}
+
+    def check(name, fn, want):
+        acc = dict(max_abs_err=0, mismatches=0)
+        compare(torch, fn(), want, acc)
+        if acc["mismatches"]:
+            raise AssertionError(f"{name}: kernel != plain version ({acc})")
+        times[name] = cuda_ms(torch, fn, 20)
+
+    def ints(shape):
+        return torch.from_numpy(rng.integers(-65536, 65537, shape).astype(
+            np.int32)).to(dev)
+
+    for d in LM_WIDTHS:
+        for n in (FAMILY_DOCS, QUERIES, GEN_PROMPTS):
+            xt = torch.from_numpy(qboundary_rows(rng, n, d)).to(dev)
+            for un in (True, False):
+                check(f"qboundary [{n}, {d}] unit_norm={un}",
+                      lambda: qb_ops.qboundary(xt, Q16_16, unit_norm=un),
+                      qb_ref.qboundary_ref(xt, Q16_16, un))
+        db = ints((SIDE_CAPACITY, d))
+        for n in (QUERIES, GEN_PROMPTS):
+            q = ints((n, d))
+            check(f"qgemm [{n}, {d}] x [{SIDE_CAPACITY}, {d}]",
+                  lambda: qg_ops.qgemm(q, db), qg_ref.qgemm_ref(q, db))
+    keys = torch.from_numpy(rng.permutation(SIDE_CAPACITY).astype(np.int32)
+                            ).to(dev)
+    for n in (QUERIES, GEN_PROMPTS):
+        s = torch.from_numpy(rng.integers(-2**45, 2**45,
+                                          (n, SIDE_CAPACITY))).to(dev)
+        s[:, ::5] = 0  # ties
+        check(f"qtopk [{n}, {SIDE_CAPACITY}] k={K}",
+              lambda: qt_ops.qtopk(s, keys, K),
+              qt_ref.qtopk_blocked(s, keys, K, qt_ops.block_n(SIDE_CAPACITY)))
+    return times
 
 
 def check_qcoarse(torch, dev, rng):
@@ -2128,15 +2218,15 @@ class EmbedProbe:
         return emb
 
 
-def lm_inputs(cfg, seed: int):
-    """Phase 8's seeded tokens: the documents, the query batches (the first
-    one cold) and the generation prompts (the first query prompts)."""
-    rng = np.random.default_rng(seed + 8)
-    docs = rng.integers(0, cfg.vocab_size, (LM_DOCS, LM_DOC_LEN),
+def lm_inputs(cfg, rng, n_docs: int, n_warm: int):
+    """Seeded tokens from ``rng``: n_docs documents of LM_DOC_LEN, 1 + n_warm
+    query batches of QUERIES prompts (the first one cold) and the
+    generation prompts (the first query prompts)."""
+    docs = rng.integers(0, cfg.vocab_size, (n_docs, LM_DOC_LEN),
                         dtype=np.int32)
     prompts = [rng.integers(0, cfg.vocab_size, (QUERIES, LM_PROMPT_LEN),
                             dtype=np.int32)
-               for _ in range(1 + LM_QUERY_BATCHES)]
+               for _ in range(1 + n_warm)]
     return docs, prompts, prompts[0][:GEN_PROMPTS]
 
 
@@ -2177,6 +2267,19 @@ def lm_generate_parts(torch, eng, tf, docs, gen_prompts, gen) -> dict:
             "decode_ms": start.elapsed_time(end) / (GEN_NEW - 1)}
 
 
+def teacher_forced(torch, tf, p, toks, n_pre: int, s_cache: int, cfg):
+    """[B, 1 + steps, V]: the logits of the prefill of ``toks[:, :n_pre]``,
+    then of each teacher-forced decode step over the rest of ``toks``."""
+    logits, caches = tf.prefill(p, {"tokens": toks[:, :n_pre]}, cfg, s_cache)
+    out = [logits]
+    for t in range(n_pre, toks.shape[1]):
+        pos = torch.full((toks.shape[0], 1), t, dtype=torch.int32,
+                         device=toks.device)
+        logits, caches = tf.decode_step(p, caches, toks[:, t:t + 1], pos, cfg)
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
 def lm_numerics(torch, dev, tf, boundary, params, cfg, tokens) -> dict:
     """The model's first local/global pair (layers 0-1) and its head: a
     copy on the CPU in f32 against the card in f32 (the pooled embeddings
@@ -2201,23 +2304,11 @@ def lm_numerics(torch, dev, tf, boundary, params, cfg, tokens) -> dict:
     seq = np.concatenate([tokens, tokens], 1)[:, :n_pre + LM_NUMERICS_STEPS]
     s_caches = (LM_S_CACHE, n_pre // 2)
 
-    def decode(p, toks, s_cache):
-        """[B, 1 + steps, V]: the prefill's logits, then each step's."""
-        logits, caches = tf.prefill(p, {"tokens": toks[:, :n_pre]}, f32,
-                                    s_cache)
-        out = [logits]
-        for t in range(n_pre, toks.shape[1]):
-            pos = torch.full((toks.shape[0], 1), t, dtype=torch.int32,
-                             device=toks.device)
-            logits, caches = tf.decode_step(p, caches, toks[:, t:t + 1], pos,
-                                            f32)
-            out.append(logits)
-        return torch.stack(out, 1)
-
     def run(p, dv):
         toks, s_toks = (torch.as_tensor(x, device=dv) for x in (tokens, seq))
         return (tf.pooled_embedding(p, toks, f32),
-                [decode(p, s_toks, s) for s in s_caches])
+                [teacher_forced(torch, tf, p, s_toks, n_pre, s, f32)
+                 for s in s_caches])
 
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -2332,20 +2423,10 @@ def run_lm(torch, dev, seed: int, cfg=None) -> dict:
     from repro_torch.serve.engine import MemoryAugmentedEngine, ServeConfig
 
     cfg = cfg or get_config(LM_ARCH)
-    docs, prompts, gen_prompts = lm_inputs(cfg, seed)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    out = {"cfg": cfg}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params = tf.init_params(cfg, torch.Generator(dev).manual_seed(seed))
-    params.requires_grad_(False)
-    torch.cuda.synchronize()
-    out["init_s"] = time.perf_counter() - t0
-    out["n_params"] = sum(p.numel() for p in params.parameters())
-    want = dataclasses.replace(cfg, vocab_size=cfg.padded_vocab).param_count()
-    if out["n_params"] != want:
-        raise AssertionError(f"{out['n_params']} parameters != {want}")
+    docs, prompts, gen_prompts = lm_inputs(
+        cfg, np.random.default_rng(seed + 8), LM_DOCS, LM_QUERY_BATCHES)
+    fresh_card(torch)
+    params, out = init_lm(torch, dev, cfg, seed)
     eng = MemoryAugmentedEngine(cfg, params, ServeConfig(
         capacity=CAPACITY, retrieve_k=K, ef=EF, s_cache=LM_S_CACHE,
         context_tokens=LM_CONTEXT, max_new_tokens=GEN_NEW), device=dev)
@@ -2487,6 +2568,366 @@ def report_lm(r) -> None:
     log(f"[lm] kernel launches on phase 8's main path: {r['counts']}")
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: the moe, ssm and hybrid LMs
+# --------------------------------------------------------------------------- #
+
+
+def lm_params(cfg) -> int:
+    """The parameter count of the reference's init: ``param_count()`` at
+    the padded vocabulary and expert count, plus what it leaves out of a
+    Mamba2 layer (the conv bias and the third head vector)."""
+    n = dataclasses.replace(cfg, vocab_size=cfg.padded_vocab,
+                            num_experts=cfg.padded_experts).param_count()
+    if cfg.family in ("ssm", "hybrid"):
+        n += cfg.num_layers * (cfg.d_inner + 2 * cfg.ssm_ngroups
+                               * cfg.ssm_state + cfg.ssm_nheads)
+    return n
+
+
+def init_lm(torch, dev, cfg, seed: int):
+    """``cfg``'s LM on ``dev`` from the seed, its parameter count checked
+    against the reference's; returns (params, a record of the config, the
+    init time and the count)."""
+    from repro_torch.models import transformer as tf
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(dev).manual_seed(seed))
+    params.requires_grad_(False)
+    torch.cuda.synchronize()
+    out = dict(cfg=cfg, init_s=time.perf_counter() - t0,
+               n_params=sum(p.numel() for p in params.parameters()))
+    if out["n_params"] != lm_params(cfg):
+        raise AssertionError(f"{cfg.name}: {out['n_params']} parameters != "
+                             f"{lm_params(cfg)}")
+    return params, out
+
+
+def family_cut(torch, params, cfg):
+    """The first layers of ``params`` as a model of their own (embedding
+    and head shared, not copied), its config and a description: the first
+    MoE layer, the first 2 mamba layers, or the hybrid's first group (its
+    shared block and hybrid_period mamba layers)."""
+    cut = torch.nn.Module()
+    cut.embed, cut.final_norm = params.embed, params.final_norm
+    if not cfg.tie_embeddings:
+        cut.lm_head = params.lm_head
+    if cfg.family == "hybrid":
+        cut.blocks = torch.nn.ModuleList(list(params.blocks)[:1])
+        cut.shared = torch.nn.ModuleList(list(params.shared)[:1])
+        return cut, dataclasses.replace(cfg, num_layers=cfg.hybrid_period,
+                                        num_shared_blocks=1), (
+            f"first group (shared block + {cfg.hybrid_period} mamba layers)")
+    n = 1 if cfg.family == "moe" else 2
+    cut.blocks = torch.nn.ModuleList(list(params.blocks)[:n])
+    return cut, dataclasses.replace(cfg, num_layers=n), (
+        f"first {n} layer{'s' if n > 1 else ''}")
+
+
+class RouteLog:
+    """While active, records each MoE call's expert choices [T, K] (on the
+    CPU) by wrapping ``moe._route``."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.route = self.moe._route
+
+        def route(params, xt, cfg):
+            out = self.route(params, xt, cfg)
+            self.calls.append(out[2].cpu())
+            return out
+
+        self.moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+
+def family_numerics(torch, dev, tf, moe, params, cfg, tokens, long_tokens
+                    ) -> dict:
+    """The depth-cut copy (``family_cut``) on the CPU in f32 against the
+    card in f32: pooled embeddings of ``tokens``; the logits of a prefill
+    of generate's length and LM_NUMERICS_STEPS teacher-forced decode steps;
+    for the ssm and hybrid families the same over ``long_tokens``
+    (SSM_LONG tokens, then the steps). Every (token, rank) expert choice
+    of the card is compared with the CPU's; the tolerance holds on the
+    documents whose choices all agree. Returns {check: (relative error,
+    documents held, choices that differ)}."""
+    import copy
+    cut, cut_cfg, what = family_cut(torch, params, cfg)
+    f32 = dataclasses.replace(cut_cfg, dtype="float32")
+    t0 = time.perf_counter()
+    cpu_cut = copy.deepcopy(cut).to("cpu")
+    copy_s = time.perf_counter() - t0
+    n_pre = LM_CONTEXT + LM_PROMPT_LEN
+    seq = np.concatenate([tokens, tokens], 1)[:, :n_pre + LM_NUMERICS_STEPS]
+    runs = {"pooled embeddings": lambda p, t: tf.pooled_embedding(p, t(tokens),
+                                                                  f32),
+            f"prefill {n_pre} + {LM_NUMERICS_STEPS} decode steps":
+                lambda p, t: teacher_forced(torch, tf, p, t(seq), n_pre,
+                                            LM_S_CACHE, f32)}
+    if cfg.family in ("ssm", "hybrid"):
+        runs[f"pooled embeddings of {SSM_LONG} tokens"] = \
+            lambda p, t: tf.pooled_embedding(p, t(long_tokens[:, :SSM_LONG]),
+                                             f32)
+        runs[f"prefill {SSM_LONG} + {LM_NUMERICS_STEPS} decode steps"] = \
+            lambda p, t: teacher_forced(torch, tf, p, t(long_tokens),
+                                        SSM_LONG, SSM_LONG + LM_S_CACHE, f32)
+    out, cpu_s = {}, 0.0
+    for name, fn in runs.items():
+        logs = []
+        for p, dv in ((cpu_cut, "cpu"), (cut, dev)):
+            with torch.no_grad(), RouteLog(moe) as rl:
+                t0 = time.perf_counter()
+                val = fn(p, lambda x: torch.as_tensor(x, device=dv)).cpu()
+                if dv == "cpu":
+                    cpu_s += time.perf_counter() - t0
+            logs.append((val, rl.calls))
+        (want, c_cpu), (got, c_card) = logs
+        if got.ndim == 3:  # logits: the padded vocabulary rows hold -1e30
+            got, want = got[..., :cfg.vocab_size], want[..., :cfg.vocab_size]
+        if not (bool(torch.isfinite(got).all()) and got.shape == want.shape
+                and len(c_cpu) == len(c_card)):
+            raise AssertionError(f"{cfg.name} {name}: non-finite or "
+                                 f"malformed output")
+        held = torch.ones(got.shape[0], dtype=torch.bool)
+        differ = 0
+        for a, b in zip(c_cpu, c_card):
+            same = a == b
+            differ += int((~same).sum())
+            held &= same.reshape(got.shape[0], -1).all(dim=1)
+        if not held.any():
+            raise AssertionError(f"{cfg.name} {name}: every document routed "
+                                 f"differently on the card")
+        rel = float((got[held] - want[held]).abs().max() / want.abs().max())
+        if rel > LM_F32_REL_TOL:
+            raise AssertionError(f"{cfg.name} {name} in f32: card against "
+                                 f"CPU {rel:.3g} > {LM_F32_REL_TOL}")
+        out[name] = (rel, int(held.sum()), differ)
+    return dict(checks=out, copy_s=copy_s, cpu_s=cpu_s, what=what)
+
+
+def run_family(torch, dev, seed: int, arch: str, cfg=None) -> dict:
+    """Phase 9, one arch: its CONFIG at full width and depth (``cfg``
+    replaces it in a CPU rehearsal) behind ``MemoryAugmentedEngine`` over
+    SIDE_CAPACITY rows: one ingest batch, reads on the auto route (exact),
+    augmented generation twice, the audit, the boundary identity, the
+    pooled embeddings' repeatability, generate's parts and the f32 cut
+    copy against the CPU. Returns the times, the checks' values and the
+    kernel launches of the main path."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import boundary
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import moe
+    from repro_torch.serve.engine import MemoryAugmentedEngine, ServeConfig
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the f32 router and SSD "
+                             "would round to 10 mantissa bits")
+    cfg = cfg or get_config(arch)
+    rng = np.random.default_rng(seed + 9)
+    docs, prompts, gen_prompts = lm_inputs(cfg, rng, FAMILY_DOCS,
+                                           FAMILY_QUERY_BATCHES)
+    long_tokens = rng.integers(0, cfg.vocab_size, (
+        LM_NUMERICS_DOCS, SSM_LONG + LM_NUMERICS_STEPS), dtype=np.int32)
+    fresh_card(torch)
+    params, out = init_lm(torch, dev, cfg, seed)
+    eng = MemoryAugmentedEngine(cfg, params, ServeConfig(
+        capacity=SIDE_CAPACITY, retrieve_k=K, ef=EF, s_cache=LM_S_CACHE,
+        context_tokens=LM_CONTEXT, max_new_tokens=GEN_NEW), device=dev)
+    probe = EmbedProbe(torch, eng)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()  # ---- the main path starts here ----
+    t0 = time.perf_counter()
+    eng.insert_documents(docs)
+    torch.cuda.synchronize()
+    out["ingest_s"] = time.perf_counter() - t0
+    read_ms, embed_ms, answers = [], [], []
+    for q in prompts:
+        n0 = len(probe.calls)
+        t0 = time.perf_counter()
+        answers.append(eng.retrieve(q))
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+        embed_ms.append(probe.calls[n0][0] * 1e3)
+    out["plan"] = eng.last_plan
+    gens, gen_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        gens.append(eng.generate(gen_prompts))
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()  # ---- the main path ends here ----
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if min(counts[name] for name in LM_KERNELS) < 1:
+        raise AssertionError(f"{cfg.name}: a kernel of the path never "
+                             f"launched: {counts}")
+    if out["plan"].route != "exact":
+        raise AssertionError(f"{cfg.name}: auto route at {FAMILY_DOCS} rows: "
+                             f"{out['plan'].route}, not exact")
+    for ids, _ in answers:
+        if ids.shape != (QUERIES, K) or (ids < 0).any() \
+                or (ids >= FAMILY_DOCS).any():
+            raise AssertionError(f"{cfg.name} retrieve: malformed answer")
+    if not np.array_equal(gens[0], gens[1]):
+        raise AssertionError(f"{cfg.name}: generate did not repeat itself")
+    if gens[0].shape != (GEN_PROMPTS, GEN_NEW) or gens[0].min() < 0 \
+            or gens[0].max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name} generate: malformed tokens")
+
+    t0 = time.perf_counter()
+    h_state, h_replay = eng.state_hash(), eng.replay_log_fresh()
+    out["audit_s"] = time.perf_counter() - t0
+    if h_state != h_replay:
+        raise AssertionError(f"{cfg.name}: replay_log_fresh() != "
+                             f"state_hash()")
+    emb = probe.calls[0][1]
+    raw = boundary.normalize_embedding(emb.cpu(), eng.sc.contract)
+    if not (bool(torch.isfinite(emb).all())
+            and torch.equal(raw, eng.log.vec[:FAMILY_DOCS].cpu())):
+        raise AssertionError(f"{cfg.name}: the CPU's boundary != the rows "
+                             f"the card logged")
+    # the ingest batch's pooled embeddings once more: the same bits (no
+    # atomics in the MoE dispatch, no run-to-run choice anywhere)
+    with torch.no_grad():
+        again = tf.pooled_embedding(params, eng._tokens(docs), cfg)
+    if not torch.equal(again, emb):
+        raise AssertionError(f"{cfg.name}: pooled embeddings differ between "
+                             f"two runs on the card")
+    out["steps"] = lm_generate_parts(torch, eng, tf, docs, gen_prompts,
+                                     gens[0])
+    out["numerics"] = family_numerics(torch, dev, tf, moe, params, cfg,
+                                      docs[:LM_NUMERICS_DOCS], long_tokens)
+    out.update(counts=counts, h_state=h_state, memory_hash=eng.memory_hash(),
+               embed_ingest_s=probe.calls[0][0], read_ms=read_ms,
+               embed_ms=embed_ms, gen_s=gen_s, gen=gens[0])
+    eng.close()
+    return out
+
+
+def fresh_card(torch) -> None:
+    """Free what earlier models left (an engine and its ``EmbedProbe``
+    hold each other, so only the collector frees them) and restart the
+    peak-memory count, so the next model's peak is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def run_phi(torch, dev, seed: int, cfg=None) -> dict:
+    """Phase 9, phi3.5-moe at full width with PHI_LAYERS layers (``cfg``
+    replaces it in a CPU rehearsal): generate's prefill ([GEN_PROMPTS,
+    LM_CONTEXT + LM_PROMPT_LEN]) and GEN_NEW greedy tokens twice, equal,
+    timed with CUDA events; then its first layer and head in f32 against
+    the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import moe
+    cfg = cfg or dataclasses.replace(get_config(PHI_ARCH),
+                                     num_layers=PHI_LAYERS)
+    rng = np.random.default_rng(seed + 10)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (GEN_PROMPTS, LM_CONTEXT + LM_PROMPT_LEN),
+                           dtype=np.int32)
+    docs = rng.integers(0, cfg.vocab_size, (LM_NUMERICS_DOCS, LM_DOC_LEN),
+                        dtype=np.int32)
+    fresh_card(torch)
+    params, out = init_lm(torch, dev, cfg, seed)
+    toks = torch.as_tensor(prompts, device=dev)
+    gens, ms = [], []
+    with torch.no_grad():
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            mid = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, caches = tf.prefill(params, {"tokens": toks}, cfg,
+                                        LM_S_CACHE)
+            mid.record()
+            gens.append(tf.greedy_decode(params, logits, caches,
+                                         toks.shape[1], GEN_NEW, cfg).cpu())
+            end.record()
+            torch.cuda.synchronize()
+            ms.append((start.elapsed_time(mid),
+                       mid.elapsed_time(end) / (GEN_NEW - 1)))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if not torch.equal(gens[0], gens[1]):
+        raise AssertionError(f"{cfg.name}: greedy decode did not repeat")
+    if gens[0].min() < 0 or gens[0].max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: malformed tokens")
+    out.update(gen=gens[0], ms=ms, numerics=family_numerics(
+        torch, dev, tf, moe, params, cfg, docs, None))
+    return out
+
+
+def report_model(r, tag: str) -> None:
+    """A phase 9 model's size and init time, its peak memory and its cut
+    copy's f32 checks against the CPU."""
+    cfg, card = r["cfg"], CARD[0]
+    log(f"[{tag}] {cfg.name} ({cfg.family}): {cfg.num_layers} layers, "
+        f"d={cfg.d_model}, vocabulary {cfg.vocab_size}, {cfg.dtype} over "
+        f"{cfg.param_dtype}: {r['n_params']} parameters, initialized on the "
+        f"card in {r['init_s']:.3f} s; peak device memory "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB (torch.cuda.max_memory_allocated;"
+        f" {card})")
+    nm = r["numerics"]
+    for name, (rel, held, differ) in nm["checks"].items():
+        log(f"[{tag}] {cfg.name} {nm['what']} + head in f32, card against "
+            f"CPU, {name} [{LM_NUMERICS_DOCS} docs]: max relative error "
+            f"{rel:.3g} over {held} documents held (tolerance "
+            f"{LM_F32_REL_TOL}); {differ} (token, rank) expert choices "
+            f"differ")
+    log(f"[{tag}] {cfg.name} copy to the CPU {nm['copy_s']:.1f} s, CPU runs "
+        f"{nm['cpu_s']:.1f} s")
+
+
+def report_family(r) -> None:
+    cfg, card = r["cfg"], CARD[0]
+    report_model(r, "families")
+    e = r["embed_ingest_s"]
+    log(f"[families] {cfg.name} ingest {FAMILY_DOCS} docs of {LM_DOC_LEN} "
+        f"tokens in one batch: {r['ingest_s']:.3f} s = "
+        f"{FAMILY_DOCS / r['ingest_s']:.1f} docs/s; LM embed {1e3 * e:.1f} "
+        f"ms, boundary + apply {1e3 * (r['ingest_s'] - e):.1f} ms ({card})")
+    warm = list(zip(r["read_ms"][1:], r["embed_ms"][1:]))
+    med = statistics.median
+    log(f"[families] {cfg.name} retrieve {QUERIES} prompts of "
+        f"{LM_PROMPT_LEN} tokens, k={K}, route {r['plan'].route}: cold "
+        f"{r['read_ms'][0]:.3f} ms, then {len(warm)} batches p50 "
+        f"{med(a for a, _ in warm):.3f} ms = embed p50 "
+        f"{med(e for _, e in warm):.3f} + search p50 "
+        f"{med(a - e for a, e in warm):.3f} ({card})")
+    st = r["steps"]
+    log(f"[families] {cfg.name} generate {GEN_PROMPTS} x {GEN_NEW} tokens, "
+        f"augmented: {r['gen_s'][0]:.3f} s, then {r['gen_s'][1]:.3f} s = "
+        f"{GEN_PROMPTS * GEN_NEW / r['gen_s'][1]:.1f} tokens/s, the same "
+        f"tokens both times; prefill [{GEN_PROMPTS}, "
+        f"{LM_CONTEXT + LM_PROMPT_LEN}] {st['prefill_ms']:.3f} ms, decode "
+        f"{st['decode_ms']:.3f} ms per step (CUDA events; {card}); the "
+        f"context moves the prefill logits by up to "
+        f"{st['ctx_logit_diff']:.4g}")
+    log(f"[families] {cfg.name} audit: replay_log_fresh == state_hash "
+        f"{r['h_state']:#018x} ({r['audit_s']:.1f} s); memory_hash "
+        f"{r['memory_hash']:#018x}; the card's boundary == the CPU's on the "
+        f"card's floats; the batch's pooled embeddings repeat bit for bit; "
+        f"first tokens {r['gen'][0, :8].tolist()}")
+    log(f"[families] {cfg.name} kernel launches: {r['counts']}")
+
+
+def report_phi(r) -> None:
+    report_model(r, "families")
+    for i, (pre, dec) in enumerate(r["ms"]):
+        log(f"[families] {r['cfg'].name} prefill [{GEN_PROMPTS}, "
+            f"{LM_CONTEXT + LM_PROMPT_LEN}] {pre:.3f} ms, greedy decode "
+            f"{dec:.3f} ms per step (run {i + 1}, CUDA events; {CARD[0]}); "
+            f"the same {GEN_PROMPTS} x {GEN_NEW} tokens both times, first "
+            f"{r['gen'][0, :8].tolist()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 3072 by default keeps the whole run inside its time limit with
@@ -2566,6 +3007,9 @@ def main() -> int:
     report_qtopk(results["qtopk"])
     report_per_shard(results)
     check_k_beyond_capacity(torch, dev)
+    for case, ms in check_lm_widths(torch, dev, rng).items():
+        log(f"[kernel] phase 9's shape {case}: equals the plain version bit "
+            f"for bit; call {ms:.4f} ms ({CARD[0]})")
 
     counts, eng, flat_ref = run_engine(torch, dev, args.docs, args.seed)
     t0 = time.perf_counter()
@@ -2596,6 +3040,15 @@ def main() -> int:
     report_lm(lm)
     log(f"[lm] phase 8 in {time.perf_counter() - t0:.1f} s ({CARD[0]})")
 
+    t0 = time.perf_counter()
+    families = {}
+    for arch in FAMILY_ARCHS:
+        families[arch] = run_family(torch, dev, args.seed, arch)
+        report_family(families[arch])
+    report_phi(run_phi(torch, dev, args.seed))
+    log(f"[families] phase 9 in {time.perf_counter() - t0:.1f} s "
+        f"({CARD[0]})")
+
     kern = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/kernels/csrc/{name}.cu",
                  replaces=REPLACES[name], launches=counts[name],
@@ -2603,6 +3056,8 @@ def main() -> int:
                  launches_sharded=sharded["counts"][name],
                  launches_network=network["counts"][name],
                  launches_lm=lm["counts"][name],
+                 launches_lm_families={arch: f["counts"][name]
+                                       for arch, f in families.items()},
                  max_abs_err=r["max_abs_err"], mismatches=r["mismatches"],
                  ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

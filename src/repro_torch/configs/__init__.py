@@ -2,9 +2,10 @@
 
 The reference's ids and canonical names. Each ported module defines CONFIG
 (the published dimensions) and REDUCED (same family, tiny dimensions) for
-CPU tests, copied from the reference. This package runs the dense family;
-the other archs are named here so that asking for one says where its port
-stands instead of failing on a missing module.
+CPU tests, copied from the reference. This package runs the token-input
+families (dense, moe, ssm, hybrid); the two archs that take external
+embeddings (vlm, audio) are named here so that asking for one says where
+its port stands instead of failing on a missing module.
 """
 from __future__ import annotations
 
@@ -42,10 +43,6 @@ CANONICAL = {
 
 # arch -> (family, ROADMAP.md Queue 1 item that ports it)
 UNPORTED = {
-    "granite_moe_3b_a800m": ("moe", "15b"),
-    "phi3_5_moe_42b_a6_6b": ("moe", "15b"),
-    "mamba2_130m": ("ssm", "15c"),
-    "zamba2_2_7b": ("hybrid", "15c"),
     "qwen2_vl_7b": ("vlm", "15d"),
     "musicgen_large": ("audio", "15d"),
 }

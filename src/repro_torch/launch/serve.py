@@ -1,7 +1,10 @@
 """Memory-augmented serving launcher (the port of ``repro.launch.serve``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
       --reduced --docs 64 --requests 8 [--device cuda]
+
+Serves the token-input archs (dense, moe, ssm, hybrid); the vlm and audio
+archs take external embeddings and are refused.
 
 Boots a model on ``--device`` (``cuda`` by default; nothing falls back to
 the CPU), ingests documents through the Valori boundary, serves batched

@@ -1,1 +1,2 @@
-"""The LM stack (the port of ``repro.models``): the dense family."""
+"""The LM stack (the port of ``repro.models``): the token-input families,
+dense, moe, ssm and hybrid."""

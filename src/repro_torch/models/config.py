@@ -3,8 +3,8 @@
 One dataclass for every family, field for field and property for property
 with the reference, so a configuration reads the same in both packages.
 ``compute_dtype`` and ``params_dtype`` return torch dtypes. This package
-runs the dense family; the fields of the other families are kept so the
-schema and ``param_count`` stay whole.
+runs the dense, moe, ssm and hybrid families; the vlm and audio fields are
+kept so the schema and ``param_count`` stay whole.
 """
 from __future__ import annotations
 

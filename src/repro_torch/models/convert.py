@@ -1,16 +1,21 @@
 """Carry LM weights between the reference's parameter tree and the port.
 
 The reference keeps a pytree of arrays: ``embed``, ``final_norm``,
-optional ``lm_head``, and ``blocks`` whose leaves are stacked ``[n, ...]``
-over layers — or, under local_global, two stacks ``a`` (the local layer of
-each pair) and ``b`` (the global one). The port keeps one module per layer
-in layer order. ``from_reference`` unstacks (pair i → layers 2i, 2i+1) and
-``to_reference`` stacks back; both take and give numpy arrays, so a round
-trip keeps every byte.
+optional ``lm_head``, and stacks whose leaves carry leading layer axes:
+
+  dense / moe / ssm : ``blocks`` [L, ...] (MoE leaves [L, E_pad, ...]);
+                      under local_global two stacks, ``a`` (the local layer
+                      of each pair) and ``b`` (the global one), [L/2, ...]
+  hybrid            : ``blocks`` [n_groups, hybrid_period, ...] and
+                      ``shared`` [num_shared_blocks, ...]
+
+The port keeps one module per layer (``blocks.{i}``, ``blocks.{g}.{j}``,
+``shared.{s}``). ``from_reference`` unstacks and ``to_reference`` stacks
+back; both take and give numpy arrays, so a round trip keeps every byte.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -43,31 +48,41 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Tree:
     return tree
 
 
-def _layer_leaves(blocks: Tree, cfg: ModelConfig) -> List[Dict[str, np.ndarray]]:
-    """The reference's stacked block leaves as one flat dict per layer, in
-    layer order."""
+def _stacks(cfg: ModelConfig
+            ) -> List[Tuple[str, Tuple[int, ...], List[str]]]:
+    """Each stack of the reference's tree: (its path, its leading layer
+    axes, the port's module prefix of each index in row-major order)."""
+    if cfg.family == "hybrid":
+        n_groups, per = cfg.num_layers // cfg.hybrid_period, cfg.hybrid_period
+        return [("blocks", (n_groups, per),
+                 [f"blocks.{g}.{j}" for g in range(n_groups)
+                  for j in range(per)]),
+                ("shared", (cfg.num_shared_blocks,),
+                 [f"shared.{s}" for s in range(cfg.num_shared_blocks)])]
     if cfg.attn_pattern == "local_global":
-        a, b = _flatten(blocks["a"]), _flatten(blocks["b"])
-        layers = []
-        for i in range(cfg.num_layers // 2):
-            layers.append({k: v[i] for k, v in a.items()})
-            layers.append({k: v[i] for k, v in b.items()})
-        return layers
-    flat = _flatten(blocks)
-    return [{k: v[i] for k, v in flat.items()}
-            for i in range(cfg.num_layers)]
+        half = cfg.num_layers // 2
+        return [("blocks.a", (half,),
+                 [f"blocks.{2 * i}" for i in range(half)]),
+                ("blocks.b", (half,),
+                 [f"blocks.{2 * i + 1}" for i in range(half)])]
+    return [("blocks", (cfg.num_layers,),
+             [f"blocks.{i}" for i in range(cfg.num_layers)])]
 
 
 def from_reference(tree: Tree, cfg: ModelConfig, device="cpu"
                    ) -> Transformer:
     """The reference's parameter tree (arrays as numpy) → the port's
     ``Transformer`` on ``device``."""
-    state = {"embed": tree["embed"],
-             "final_norm.scale": tree["final_norm"]["scale"]}
-    if "lm_head" in tree:
-        state["lm_head"] = tree["lm_head"]
-    for i, leaves in enumerate(_layer_leaves(tree["blocks"], cfg)):
-        state.update({f"blocks.{i}.{k}": v for k, v in leaves.items()})
+    state = _flatten({k: v for k, v in tree.items()
+                      if k not in ("blocks", "shared")})
+    for path, axes, prefixes in _stacks(cfg):
+        node = tree
+        for key in path.split("."):
+            node = node[key]
+        for name, val in _flatten(node).items():
+            flat = val.reshape((-1,) + val.shape[len(axes):])
+            state.update({f"{prefix}.{name}": flat[i]
+                          for i, prefix in enumerate(prefixes)})
     model = init_params(cfg, torch.Generator(device).manual_seed(0))
     model.load_state_dict({k: torch.from_numpy(np.array(v))
                            for k, v in state.items()}, strict=True)
@@ -76,22 +91,17 @@ def from_reference(tree: Tree, cfg: ModelConfig, device="cpu"
 
 def to_reference(params: Transformer, cfg: ModelConfig) -> Tree:
     """The port's ``Transformer`` → the reference's parameter tree of numpy
-    arrays (layers stacked back, local_global split into ``a``/``b``)."""
+    arrays (the layers stacked back along their leading axes)."""
     sd = {k: v.detach().cpu().numpy() for k, v in params.state_dict().items()}
-    tree: Tree = {"embed": sd["embed"],
-                  "final_norm": {"scale": sd["final_norm.scale"]}}
-    if "lm_head" in sd:
-        tree["lm_head"] = sd["lm_head"]
-    layers = [{k.split(".", 2)[2]: v for k, v in sd.items()
-               if k.startswith(f"blocks.{i}.")}
-              for i in range(cfg.num_layers)]
-
-    def stack(group):
-        return _unflatten({k: np.stack([layer[k] for layer in group])
-                           for k in group[0]})
-
-    if cfg.attn_pattern == "local_global":
-        tree["blocks"] = {"a": stack(layers[0::2]), "b": stack(layers[1::2])}
-    else:
-        tree["blocks"] = stack(layers)
-    return tree
+    flat = {}
+    stacked = set()
+    for path, axes, prefixes in _stacks(cfg):
+        head = prefixes[0] + "."
+        for key in (k for k in sd if k.startswith(head)):
+            name = key[len(head):]
+            parts = [sd[f"{prefix}.{name}"] for prefix in prefixes]
+            flat[f"{path}.{name}"] = np.stack(parts).reshape(
+                axes + parts[0].shape)
+            stacked.update(f"{prefix}.{name}" for prefix in prefixes)
+    flat.update({k: v for k, v in sd.items() if k not in stacked})
+    return _unflatten(flat)

@@ -14,14 +14,22 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.zeros(d, dtype=param_dtype,
                                               device=device))
 
+
 def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float, *,
             gemma_style: bool = True) -> torch.Tensor:
     """Computed in f32 for stability, cast back to the input dtype;
     ``gemma_style`` applies the scale as (1 + w)."""
+    return rmsnorm_scale(params.scale, x, eps, gemma_style=gemma_style)
+
+
+def rmsnorm_scale(scale: torch.Tensor, x: torch.Tensor, eps: float, *,
+                  gemma_style: bool = True) -> torch.Tensor:
+    """``rmsnorm`` over a bare ``scale`` tensor (the Mamba2 block's gated
+    norm keeps its scale as one of the block's own parameters)."""
     dtype = x.dtype
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
-    w = params.scale.to(torch.float32)
+    w = scale.to(torch.float32)
     w = 1.0 + w if gemma_style else w
     return (xf * w).to(dtype)

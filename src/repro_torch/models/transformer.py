@@ -1,20 +1,32 @@
-"""The LM: init / apply / prefill / decode (the port of
-``repro.models.transformer``, dense family).
+"""The LM: init / apply / prefill / decode for the token-input families
+(the port of ``repro.models.transformer``).
 
-The reference scans stacked layer params (``[n, ...]`` leaves, or ``a``/
-``b`` stacks of local/global pairs for gemma2); here the layers are one
-``nn.ModuleList`` in layer order and the stack is a Python loop. Layer i
-is local (sliding window) when ``cfg.layer_is_local(i)``: every layer
-under swa, the even layers (the reference's ``a`` of pair i/2) under
-local_global. ``models.convert`` carries the reference's tree across.
+The reference scans stacked layer params; here each stack is an
+``nn.ModuleList`` in layer order and the scan is a Python loop.
+``models.convert`` carries the reference's tree across. Stacks by family:
+
+  dense / moe : one ``DecoderBlock`` per layer. Layer i is local (sliding
+                window) when ``cfg.layer_is_local(i)``: every layer under
+                swa, the even layers (the reference's ``a`` of pair i/2)
+                under local_global.
+  ssm         : one ``MambaLayer`` per layer.
+  hybrid      : ``blocks`` holds n_groups = num_layers // hybrid_period
+                groups of hybrid_period ``MambaLayer``s; group g runs the
+                shared ``DecoderBlock`` g % num_shared_blocks (full
+                attention) before its mamba layers.
+
+The vlm and audio families take external embeddings and are not ported.
 
 Parameters are float32 masters cast to the compute dtype at every use;
-norms, RoPE, the softmax and the logits after the head are float32.
-Caches are one ``{k, v, pos}`` dict per layer, written in place.
+norms, RoPE, the softmax, the MoE router, the SSD scan and the logits
+after the head are float32. Caches follow the stack: one attention
+``{k, v, pos}`` (written in place) or SSM ``{ssm, conv}`` dict per layer;
+the hybrid's are ``{"mamba": [group][layer], "shared": [group]}``, one
+full-length attention cache per group invocation.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,21 +35,23 @@ from repro_torch.models import blocks as blk
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.initializers import embed_init
 from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers import ssm as ssm_lib
 from repro_torch.models.layers.norms import RMSNorm, rmsnorm
 
-Caches = List[attn_lib.Cache]
+Caches = Any  # per family: see the module docstring
 
 
 class Transformer(nn.Module):
-    """``embed`` [padded_vocab, D], ``blocks`` (one ``DecoderBlock`` per
-    layer), ``final_norm`` and, untied, ``lm_head`` [D, padded_vocab]."""
+    """``embed`` [padded_vocab, D], ``blocks`` (per family: see the module
+    docstring), ``shared`` (hybrid: ``num_shared_blocks`` decoder blocks),
+    ``final_norm`` and, untied, ``lm_head`` [D, padded_vocab]."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported "
-                "(ROADMAP.md Queue 1)")
+                f"{cfg.name}: the {cfg.family} family takes external "
+                "embeddings and is not ported (ROADMAP.md Queue 1 item 15d)")
         if cfg.attn_pattern == "local_global" and cfg.num_layers % 2:
             raise ValueError("local_global needs an even layer count")
         pd = cfg.params_dtype
@@ -45,8 +59,25 @@ class Transformer(nn.Module):
         # in _head
         self.embed = nn.Parameter(
             embed_init(generator, (cfg.padded_vocab, cfg.d_model), pd))
-        self.blocks = nn.ModuleList(
-            blk.DecoderBlock(generator, cfg) for _ in range(cfg.num_layers))
+        if cfg.family == "ssm":
+            self.blocks = nn.ModuleList(
+                blk.MambaLayer(generator, cfg) for _ in range(cfg.num_layers))
+        elif cfg.family == "hybrid":
+            n_groups = cfg.num_layers // cfg.hybrid_period
+            if n_groups * cfg.hybrid_period != cfg.num_layers:
+                raise ValueError("hybrid needs num_layers to be a multiple "
+                                 "of hybrid_period")
+            self.blocks = nn.ModuleList(
+                nn.ModuleList(blk.MambaLayer(generator, cfg)
+                              for _ in range(cfg.hybrid_period))
+                for _ in range(n_groups))
+            self.shared = nn.ModuleList(
+                blk.DecoderBlock(generator, cfg)
+                for _ in range(cfg.num_shared_blocks))
+        else:
+            self.blocks = nn.ModuleList(
+                blk.DecoderBlock(generator, cfg)
+                for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.d_model, pd, generator.device)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
@@ -66,8 +97,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
 
 def init_caches(cfg: ModelConfig, batch: int, s_cache: int, device
                 ) -> Caches:
-    """Decode state, one cache per layer: ``s_cache`` slots, or
-    min(window, s_cache) on sliding-window layers."""
+    """Decode state in the stack's layout (module docstring): attention
+    caches of ``s_cache`` slots, or min(window, s_cache) on sliding-window
+    layers; zero SSM state and conv tails."""
+    if cfg.family == "ssm":
+        return [ssm_lib.init_ssm_cache(batch, cfg, device)
+                for _ in range(cfg.num_layers)]
+    if cfg.family == "hybrid":
+        n_groups = cfg.num_layers // cfg.hybrid_period
+        return {"mamba": [[ssm_lib.init_ssm_cache(batch, cfg, device)
+                           for _ in range(cfg.hybrid_period)]
+                          for _ in range(n_groups)],
+                "shared": [attn_lib.init_cache(batch, s_cache, cfg, device)
+                           for _ in range(n_groups)]}
     w = min(cfg.sliding_window, s_cache)
     return [attn_lib.init_cache(batch, w if cfg.layer_is_local(i) else s_cache,
                                 cfg, device)
@@ -81,17 +123,47 @@ def init_caches(cfg: ModelConfig, batch: int, s_cache: int, device
 
 def _run_stack(params: Transformer, h: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig, mode: str, caches: Optional[Caches]
-               ) -> Tuple[torch.Tensor, Optional[Caches]]:
-    """Every layer in order; returns (h, caches). (The reference also
-    returns the MoE balance loss, which the dense family does not have.)"""
-    new_caches = [] if caches is not None else None
+               ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
+    """Every layer in order; returns (h, caches, the summed MoE balance
+    loss: float32 zero outside the moe family)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def cache(tree, i):
+        return None if tree is None else tree[i]
+
+    if cfg.family == "ssm":
+        new = []
+        for i, layer in enumerate(params.blocks):
+            h, nc = blk.mamba_layer(layer, h, cfg, mode=mode,
+                                    cache_slice=cache(caches, i))
+            new.append(nc)
+        return h, (new if caches is not None else None), aux
+
+    if cfg.family == "hybrid":
+        c_shared = None if caches is None else caches["shared"]
+        c_mamba = None if caches is None else caches["mamba"]
+        new = {"mamba": [], "shared": []}
+        for g, group in enumerate(params.blocks):
+            h, nc, _ = blk.decoder_block(
+                params.shared[g % cfg.num_shared_blocks], h, positions, cfg,
+                local=False, mode=mode, cache_slice=cache(c_shared, g))
+            new["shared"].append(nc)
+            new["mamba"].append([])
+            for j, layer in enumerate(group):
+                h, nc = blk.mamba_layer(layer, h, cfg, mode=mode,
+                                        cache_slice=cache(cache(c_mamba, g),
+                                                          j))
+                new["mamba"][g].append(nc)
+        return h, (new if caches is not None else None), aux
+
+    new = []
     for i, layer in enumerate(params.blocks):
-        h, nc = blk.decoder_block(
+        h, nc, a = blk.decoder_block(
             layer, h, positions, cfg, local=cfg.layer_is_local(i), mode=mode,
-            cache_slice=None if caches is None else caches[i])
-        if new_caches is not None:
-            new_caches.append(nc)
-    return h, new_caches
+            cache_slice=cache(caches, i))
+        new.append(nc)
+        aux = aux + a
+    return h, (new if caches is not None else None), aux
 
 
 # --------------------------------------------------------------------------- #
@@ -133,14 +205,14 @@ def _positions(B: int, L: int, device) -> torch.Tensor:
 
 
 def apply(params: Transformer, batch: Dict[str, torch.Tensor],
-          cfg: ModelConfig) -> torch.Tensor:
-    """Training/eval forward: full-sequence logits [B, L, V]. (The
-    reference returns (logits, aux); aux is MoE-only.)"""
+          cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training/eval forward: (full-sequence logits [B, L, V], the MoE
+    balance loss summed over layers, float32)."""
     h = _embed(params, batch, cfg)
     B, L = h.shape[0], h.shape[1]
-    h, _ = _run_stack(params, h, _positions(B, L, h.device), cfg, "train",
-                      None)
-    return _head(params, h, cfg)
+    h, _, aux = _run_stack(params, h, _positions(B, L, h.device), cfg,
+                           "train", None)
+    return _head(params, h, cfg), aux
 
 
 def prefill(params: Transformer, batch: Dict[str, torch.Tensor],
@@ -149,8 +221,8 @@ def prefill(params: Transformer, batch: Dict[str, torch.Tensor],
     h = _embed(params, batch, cfg)
     B, L = h.shape[0], h.shape[1]
     caches = init_caches(cfg, B, s_cache, h.device)
-    h, caches = _run_stack(params, h, _positions(B, L, h.device), cfg,
-                           "prefill", caches)
+    h, caches, _ = _run_stack(params, h, _positions(B, L, h.device), cfg,
+                              "prefill", caches)
     logits = _head(params, h[:, -1:], cfg)
     return logits[:, 0], caches
 
@@ -159,9 +231,10 @@ def decode_step(params: Transformer, caches: Caches, tokens: torch.Tensor,
                 positions: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, Caches]:
     """One decode step. tokens [B, 1]; positions [B, 1]. Returns (logits
-    [B, V], caches) — the caches updated in place."""
+    [B, V], caches): attention caches are written in place, SSM caches
+    replaced."""
     h = _embed(params, {"tokens": tokens}, cfg)
-    h, caches = _run_stack(params, h, positions, cfg, "decode", caches)
+    h, caches, _ = _run_stack(params, h, positions, cfg, "decode", caches)
     logits = _head(params, h, cfg)
     return logits[:, 0], caches
 
@@ -174,8 +247,8 @@ def pooled_embedding(params: Transformer, tokens: torch.Tensor,
     [B, D]."""
     h = _embed(params, {"tokens": tokens}, cfg)
     B, L = h.shape[:2]
-    h, _ = _run_stack(params, h, _positions(B, L, h.device), cfg, "train",
-                      None)
+    h, _, _ = _run_stack(params, h, _positions(B, L, h.device), cfg, "train",
+                         None)
     return torch.mean(h.to(torch.float32), dim=1)
 
 

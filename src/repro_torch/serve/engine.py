@@ -403,7 +403,10 @@ class MemoryAugmentedEngine:
 
     @torch.no_grad()
     def _embed_batch(self, tokens) -> torch.Tensor:
-        """tokens [B, L] → float32 [B, D] (``transformer.pooled_embedding``)."""
+        """tokens [B, L] → float32 [B, D] (``transformer.pooled_embedding``).
+        Under the moe family a document's embedding depends on its batch
+        (the experts' capacity counts the batch's tokens), as in the
+        reference."""
         return tf.pooled_embedding(self.params, self._tokens(tokens), self.cfg)
 
     def _embed(self, x) -> torch.Tensor:

@@ -70,12 +70,11 @@ def doc_batches(vocab, n, seed):
             for _ in range(n)]
 
 
-@pytest.fixture(scope="module", params=["h2o_danube_1_8b", "gemma2_2b"])
-def pair(request):
+def make_pair(arch):
     """The reference engine ``j``, the port's token engine ``t`` and its
     embedding engine ``e`` (fed ``t``'s LM), through three inserts and a
     delete."""
-    jcfg, tcfg, jparams, model, jmake, tmake = engines(request.param)
+    jcfg, tcfg, jparams, model, jmake, tmake = engines(arch)
     j, t = jmake(), tmake()
     e = tengine.MemoryAugmentedEngine(tcfg.d_model, tengine.ServeConfig(**SC),
                                       device="cpu")
@@ -90,6 +89,11 @@ def pair(request):
         0, jcfg.vocab_size, (PROMPTS, PROMPT_LEN), dtype=np.int32)
     return types.SimpleNamespace(jcfg=jcfg, tcfg=tcfg, j=j, t=t, e=e,
                                  batches=batches, prompts=prompts)
+
+
+@pytest.fixture(scope="module", params=["h2o_danube_1_8b", "gemma2_2b"])
+def pair(request):
+    return make_pair(request.param)
 
 
 def test_pooled_embeddings_agree(pair):

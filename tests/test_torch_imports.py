@@ -48,6 +48,11 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models.layers.rope",
             "repro_torch.models.layers.mlp",
             "repro_torch.models.layers.attention",
+            "repro_torch.models.layers.moe", "repro_torch.models.layers.ssm",
+            "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.phi3_5_moe_42b_a6_6b",
+            "repro_torch.configs.mamba2_130m",
+            "repro_torch.configs.zamba2_2_7b",
             "repro_torch.models.blocks", "repro_torch.models.transformer",
             "repro_torch.models.convert",
             "repro_torch.launch.serve"} <= set(mods)

@@ -210,9 +210,10 @@ def test_decoder_block_matches_reference(arch):
     want, _, _ = jblk.decoder_block(jax.tree.map(jnp.asarray, tree),
                                     jnp.asarray(x), jnp.asarray(pos), jcfg,
                                     local=True, mode="train")
-    got, _ = tblk.decoder_block(mod, torch.from_numpy(x),
-                                torch.from_numpy(pos), tcfg, local=True,
-                                mode="train")
+    got, _, aux = tblk.decoder_block(mod, torch.from_numpy(x),
+                                     torch.from_numpy(pos), tcfg, local=True,
+                                     mode="train")
+    assert float(aux) == 0.0
     close(got, want)
 
 
@@ -240,8 +241,10 @@ def test_apply_prefill_decode_match_reference(arch, dtype):
     jp = jax.tree.map(jnp.asarray, tree)
     with torch.no_grad():
         want, _ = jtf.apply(jp, {"tokens": jnp.asarray(tokens)}, jcfg)
-        got = ttf.apply(model, {"tokens": torch.from_numpy(tokens)}, tcfg)
+        got, aux = ttf.apply(model, {"tokens": torch.from_numpy(tokens)},
+                             tcfg)
         close(got, want, tol)
+        assert float(aux) == 0.0
         want, jc = jtf.prefill(jp, {"tokens": jnp.asarray(tokens[:, :32])},
                                jcfg, 48)
         got, tc = ttf.prefill(model, {"tokens": torch.from_numpy(
