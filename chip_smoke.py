@@ -133,9 +133,10 @@ Phases (any failure raises and exits non-zero):
    vocabulary 256000, bf16 compute over f32 parameters, from
    ``torch.Generator("cuda").manual_seed(seed)``) behind
    ``MemoryAugmentedEngine(cfg, params, ServeConfig(capacity=131072,
-   ...))``: 1024 seeded token documents of 64 tokens ingested in 2 batches
-   of 512, 64 prompts of 16 tokens retrieved on the auto route (exact at
-   1024 live rows; one cold batch, then 10), 8 prompts x 32 tokens
+   ...))``: 512 seeded token documents of 64 tokens ingested in one batch
+   (cut from 1024 to keep the run inside its time limit), 64 prompts of 16
+   tokens retrieved on the auto route (exact at 512 live rows; one cold
+   batch, then 10), 8 prompts x 32 tokens
    generated, augmented, twice (the two must be equal), launch counts
    zeroed before the ingest and read after the generations, and
    ``replay_log_fresh() == state_hash()``; one ingest batch's float
@@ -158,8 +159,8 @@ Phases (any failure raises and exits non-zero):
    CONFIG's full width and depth (bf16 over f32 parameters, from the
    seed on the card), one after another, each behind
    ``MemoryAugmentedEngine(cfg, params, ServeConfig(capacity=8192, ...))``:
-   512 token documents of 64 tokens in one batch, 6 batches of 64 prompts
-   on the auto route (exact), 8 x 32 augmented tokens twice (equal), launch
+   256 token documents of 64 tokens in one batch (cut from 512 for the
+   run's time limit), 6 batches of 64 prompts on the auto route (exact), 8 x 32 augmented tokens twice (equal), launch
    counts zeroed before the ingest and read after the generations,
    ``replay_log_fresh() == state_hash()``, the boundary identity of phase
    8, the ingest batch's pooled embeddings computed again and equal bit for
@@ -174,7 +175,38 @@ Phases (any failure raises and exits non-zero):
    tokens (more than one 256-token SSD chunk), held to ``LM_F32_REL_TOL``
    on the documents whose expert choices agree (the count of differing
    (token, rank) choices is printed). Phase 2 holds the kernels at phase
-   9's shapes (d = 768, 1536, 2560; 8192 rows).
+   9's shapes (d = 768, 1536, 2560; 8192 rows);
+10. train — (a) gemma2-2b's CONFIG (26 layers, d = 2304, vocabulary
+   256000, bf16 compute over f32 masters, ``remat="block"``) from the seed
+   on the card: 4 steps of ``make_train_step`` (AdamW) on
+   ``DeterministicPipeline`` batches of 4 x 256 tokens, then a fresh init
+   from the same seed and the same 4 steps: the losses, gradient norms and
+   the ``hash_state_device`` of the parameters in the reference's layout
+   must be equal bit for bit; step times, tokens/s and the peak memory
+   printed; (b) the same CONFIG cut to 2 layers in f32, one batch of 64
+   tokens on the card and on the CPU: loss within 1e-5, gradient norm
+   within 1e-4, each gradient leaf within 1e-4 (relative Frobenius); the
+   card's step runs under ``torch.use_deterministic_algorithms(True,
+   warn_only=True)``, switched off after it, and the ops it flags are
+   printed;
+   (c) mamba2-130m's CONFIG through ``launch.train.make_coordinator`` (the
+   launcher's path: batches of 8 x 256, 8 steps, a checkpoint every 4 in a
+   temporary directory), once clean and once with a failure injected at
+   step 6 that resumes from step 4: the clean run's events are its two
+   checkpoints alone and the other's add that one failure and one restart
+   (a fault on the card that the Coordinator caught and replayed would
+   fail here); equal ``hash_pytree`` of the final train states,
+   checkpoint save and restore seconds printed; each run's
+   weights then serve 256 token documents and one batch of 64 prompts
+   behind the token engine (``SIDE_CAPACITY`` rows), with equal
+   ``memory_hash`` and ``retrieval_hash`` (qboundary, qgemm, qtopk; launch
+   counts zeroed before the first engine and read after the second);
+   (d) mamba2-130m's ``make_compressed_train_step`` over 4 pods on
+   ``[cuda] * 4`` (global batch 8 x 256), 2 steps with error feedback,
+   twice: every pod of both runs on the same parameter bits, and the first
+   step's ``integer_psum_grads`` on the card equal to the CPU's on the same
+   per-pod gradients bit for bit; before it, one step of mamba2-130m cut
+   to 2 layers under the deterministic mode lists the ops it flags.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs the repository's ``src/``
@@ -195,6 +227,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -250,7 +283,7 @@ CARD = ["card not read"]  # nvidia-smi's name and power limit, for reports
 # durable engine over SIDE_CAPACITY rows ingests LM_DURABLE_DOCS in
 # batches of LM_DURABLE_BATCH with a checkpoint every LM_CHECKPOINT_EVERY
 LM_ARCH = "gemma2-2b"
-LM_DOCS = 1024
+LM_DOCS = 512  # cut from 1024 to keep the run inside its time limit
 LM_DOC_LEN = 64
 LM_PROMPT_LEN = 16
 LM_QUERY_BATCHES = 10
@@ -278,12 +311,44 @@ LM_F32_REL_TOL = 1e-4
 # copies also run SSM_LONG tokens: more than one 256-token SSD chunk and
 # not a multiple of it
 FAMILY_ARCHS = ("granite-moe-3b-a800m", "mamba2-130m", "zamba2-2.7b")
-FAMILY_DOCS = 512
+FAMILY_DOCS = 256  # cut from 512 to keep the run inside its time limit
 FAMILY_QUERY_BATCHES = 5
 PHI_ARCH = "phi3.5-moe-42b-a6.6b"
 PHI_LAYERS = 2
 SSM_LONG = 300
 LM_WIDTHS = (768, 1536, 2560)  # d_model of mamba2, granite-moe, zamba2
+
+# phase 10: training. (a) TRAIN_ARCH's CONFIG (bf16 compute over f32
+# masters, remat="block") takes TRAIN_STEPS AdamW steps on pipeline batches
+# of TRAIN_BATCH x TRAIN_SEQ tokens, twice from the seed; (b) its depth cut
+# to TRAIN_CUT_LAYERS layers in f32 takes one step's gradients on the card
+# and on the CPU (batch 1, TRAIN_CUT_SEQ tokens), held to the TRAIN_*_REL
+# tolerances; (c) COORD_ARCH trains through the launcher's Coordinator
+# (COORD_BATCH x COORD_SEQ, COORD_STEPS steps, a checkpoint every
+# COORD_EVERY), once clean and once failing at step COORD_FAIL_AT, and each
+# run's weights serve COORD_DOCS documents and one batch of QUERIES prompts
+# behind the token engine; (d) COORD_ARCH's compressed step over PODS pods
+# on the card, POD_STEPS steps, twice
+TRAIN_ARCH = "gemma2-2b"
+TRAIN_STEPS = 4
+TRAIN_BATCH = 4
+TRAIN_SEQ = 256
+TRAIN_LR = 3e-4
+TRAIN_CUT_LAYERS = 2
+TRAIN_CUT_SEQ = 64
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GNORM_REL = 1e-4
+TRAIN_GRAD_REL = 1e-4  # each gradient leaf, relative Frobenius error
+COORD_ARCH = "mamba2-130m"
+COORD_BATCH = 8
+COORD_SEQ = 256
+COORD_STEPS = 8
+COORD_EVERY = 4
+COORD_FAIL_AT = 6
+COORD_LR = 3e-3  # launch/train.py's default
+COORD_DOCS = FAMILY_DOCS  # phase 2 holds the kernels at phase 9's shapes
+PODS = 4
+POD_STEPS = 2
 
 REPLACES = {
     "qboundary": "src/repro/kernels/qboundary/kernel.py:29",
@@ -2423,8 +2488,11 @@ def run_lm(torch, dev, seed: int, cfg=None) -> dict:
     from repro_torch.serve.engine import MemoryAugmentedEngine, ServeConfig
 
     cfg = cfg or get_config(LM_ARCH)
+    # the engine ingests the first LM_DOCS, the durable engine the first
+    # LM_DURABLE_DOCS
     docs, prompts, gen_prompts = lm_inputs(
-        cfg, np.random.default_rng(seed + 8), LM_DOCS, LM_QUERY_BATCHES)
+        cfg, np.random.default_rng(seed + 8), max(LM_DOCS, LM_DURABLE_DOCS),
+        LM_QUERY_BATCHES)
     fresh_card(torch)
     params, out = init_lm(torch, dev, cfg, seed)
     eng = MemoryAugmentedEngine(cfg, params, ServeConfig(
@@ -2927,6 +2995,419 @@ def report_phi(r) -> None:
             f"the same {GEN_PROMPTS} x {GEN_NEW} tokens both times, first "
             f"{r['gen'][0, :8].tolist()}")
 
+# --------------------------------------------------------------------------- #
+# phase 10: training
+# --------------------------------------------------------------------------- #
+
+
+def flagged_ops(torch, fn):
+    """(``fn()``, the first line of each warning about determinism that
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` raises
+    while it runs): the ops PyTorch knows to be nondeterministic on the
+    card. The mode is switched off again before anything else runs."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out, sorted({str(w.message).split("\n")[0] for w in caught
+                        if "eterministic" in str(w.message)})
+
+
+def train_twice(torch, dev, seed: int, cfg) -> dict:
+    """(a) ``cfg`` from the seed on ``dev``: TRAIN_STEPS steps of
+    ``make_train_step`` on the pipeline's batches, then the same again from
+    a fresh init. The losses, gradient norms and the ``hash_state_device``
+    of the parameters in the reference's layout must repeat bit for bit."""
+    from repro_torch.core import hashing
+    from repro_torch.data.pipeline import DataConfig, DeterministicPipeline
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step, train_state
+    data = DeterministicPipeline(DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        vocab_size=cfg.vocab_size, seed=seed))
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                            total_steps=TRAIN_STEPS))
+    runs = []
+    for _ in range(2):
+        fresh_card(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, torch.Generator(dev).manual_seed(seed))
+        opt = adamw_init(params)
+        torch.cuda.synchronize()
+        run = dict(init_s=time.perf_counter() - t0, ms=[], losses=[],
+                   gnorms=[])
+        for s in range(TRAIN_STEPS):
+            batch = data.batch(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            run["ms"].append((time.perf_counter() - t0) * 1e3)
+            run["losses"].append(m["loss"].item())
+            run["gnorms"].append(m["grad_norm"].item())
+        run["peak_bytes"] = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        state = train_state(params, opt, cfg)
+        run["hash"] = hashing.hash_state_device(state["params"])
+        torch.cuda.synchronize()
+        run["hash_s"] = time.perf_counter() - t0
+        run["n_params"] = sum(p.numel() for p in params.parameters())
+        runs.append(run)
+        del params, opt, state, m
+    a, b = runs
+    if (a["losses"], a["gnorms"], a["hash"]) != \
+            (b["losses"], b["gnorms"], b["hash"]):
+        raise AssertionError(f"{cfg.name}: a second training run from the "
+                             f"seed differs: {a} vs {b}")
+    if not all(np.isfinite(a["losses"] + a["gnorms"])):
+        raise AssertionError(f"{cfg.name}: non-finite loss or gradient norm")
+    return dict(cfg=cfg, runs=runs)
+
+
+def train_cut_numerics(torch, dev, seed: int, cfg) -> dict:
+    """(b) ``cfg`` cut to TRAIN_CUT_LAYERS layers in f32, from the seed on
+    the card and copied to the CPU: one batch of TRAIN_CUT_SEQ tokens, the
+    loss, the gradient norm and every gradient leaf of both, held to
+    TRAIN_LOSS_REL, TRAIN_GNORM_REL and TRAIN_GRAD_REL. The card's step
+    runs under the deterministic mode, which lists the ops it flags."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.step import loss_and_grads
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS,
+                              dtype="float32")
+    rng = np.random.default_rng(seed + 11)
+    toks = rng.integers(0, cfg.vocab_size, (1, TRAIN_CUT_SEQ + 1),
+                        dtype=np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    fresh_card(torch)
+    params = tf.init_params(cut, torch.Generator(dev).manual_seed(seed))
+    (m_dev, g_dev), flagged = flagged_ops(
+        torch, lambda: loss_and_grads(params, batch, cut))
+    gn_dev = global_norm(g_dev).item()
+    g_dev = {k: v.cpu() for k, v in g_dev.items()}
+    t0 = time.perf_counter()
+    cpu = tf.init_params(cut, None).to_empty(device="cpu")
+    cpu.load_state_dict(params.state_dict())
+    del params
+    m_cpu, g_cpu = loss_and_grads(cpu, batch, cut)
+    cpu_s = time.perf_counter() - t0
+    gn_cpu = global_norm(g_cpu).item()
+
+    def rel(got, want):
+        return float(torch.linalg.vector_norm((got - want).double())
+                     / torch.linalg.vector_norm(want.double()))
+
+    leaves = {k: rel(g_dev[k], g_cpu[k]) for k in g_cpu}
+    worst = max(leaves, key=leaves.get)
+    out = dict(cut=cut, loss=(m_dev["loss"].item(), m_cpu["loss"].item()),
+               gnorm=(gn_dev, gn_cpu), worst=(worst, leaves[worst]),
+               n_leaves=len(leaves), cpu_s=cpu_s, flagged=flagged)
+    loss_rel = abs(out["loss"][0] - out["loss"][1]) / abs(out["loss"][1])
+    gn_rel = abs(gn_dev - gn_cpu) / gn_cpu
+    out.update(loss_rel=loss_rel, gnorm_rel=gn_rel)
+    if loss_rel > TRAIN_LOSS_REL or gn_rel > TRAIN_GNORM_REL \
+            or leaves[worst] > TRAIN_GRAD_REL:
+        raise AssertionError(
+            f"{cut.name} cut in f32, card against CPU: loss {loss_rel:.3g} "
+            f"(tolerance {TRAIN_LOSS_REL}), gradient norm {gn_rel:.3g} "
+            f"({TRAIN_GNORM_REL}), {worst} {leaves[worst]:.3g} "
+            f"({TRAIN_GRAD_REL})")
+    return out
+
+
+class Timed:
+    """Wraps a method of an object with a list of its call times."""
+
+    def __init__(self, torch, obj, name: str):
+        self.torch, self.fn, self.s = torch, getattr(obj, name), []
+        setattr(obj, name, self)
+
+    def __call__(self, *args, **kwargs):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        self.s.append(time.perf_counter() - t0)
+        return out
+
+
+def train_coordinator(torch, dev, seed: int, cfg) -> dict:
+    """(c) ``cfg`` through ``launch.train.make_coordinator`` (the path
+    ``python -m repro_torch.launch.train`` takes) in a temporary directory:
+    a clean run and one with a failure at step COORD_FAIL_AT that resumes
+    from its step-COORD_EVERY checkpoint must end on the same
+    ``hash_pytree``; then each run's weights behind the token engine
+    (SIDE_CAPACITY rows): COORD_DOCS documents in one batch and one batch
+    of QUERIES prompts, whose ``memory_hash`` and ``retrieval_hash`` must
+    be equal. Launch counts are zeroed before the first engine is built and
+    read after the second one's reads."""
+    from repro_torch import kernels
+    from repro_torch.launch.train import make_coordinator
+    from repro_torch.serve.engine import MemoryAugmentedEngine, ServeConfig
+    from repro_torch.train.step import bind_state
+    rng = np.random.default_rng(seed + 12)
+    docs = rng.integers(0, cfg.vocab_size, (COORD_DOCS, LM_DOC_LEN),
+                        dtype=np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (QUERIES, LM_PROMPT_LEN),
+                           dtype=np.int32)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    runs = {}
+    try:
+        for name, fail_at in (("clean", None), ("restarted", COORD_FAIL_AT)):
+            fresh_card(torch)
+            fired = []
+
+            def injector(step, fail_at=fail_at, fired=fired):
+                if step == fail_at and not fired:
+                    fired.append(step)
+                    return f"injected at step {step}"
+                return None
+
+            coord = make_coordinator(
+                cfg, dev, steps=COORD_STEPS, batch=COORD_BATCH,
+                seq=COORD_SEQ, lr=COORD_LR, seed=seed,
+                checkpoint_dir=os.path.join(tmp, name),
+                checkpoint_every=COORD_EVERY, failure_injector=injector)
+            save = Timed(torch, coord.ckpt, "save")
+            restore = Timed(torch, coord.ckpt, "restore_latest")
+            t0 = time.perf_counter()
+            state = coord.train()
+            torch.cuda.synchronize()
+            # the Coordinator restarts from its last checkpoint whatever a
+            # step raises: the clean run's events are its checkpoints
+            # alone, the other's hold the injected failure and one restart,
+            # so a fault on the card cannot pass as a recovery. The save at
+            # the last step wrote hash_pytree(state) into its manifest
+            want = [{"event": "checkpoint", "step": s}
+                    for s in range(COORD_EVERY, COORD_STEPS + 1, COORD_EVERY)]
+            if fail_at is not None:
+                back = fail_at // COORD_EVERY
+                want[back:back] = [
+                    {"event": "failure", "step": fail_at,
+                     "error": f"injected failure: injected at step {fail_at}"},
+                    {"event": "restart", "from_step": back * COORD_EVERY}]
+            if coord.events != want:
+                raise AssertionError(f"{cfg.name} Coordinator, {name} run: "
+                                     f"events {coord.events} != {want}")
+            run = dict(train_s=time.perf_counter() - t0, save_s=save.s,
+                       restore_s=restore.s, events=coord.events,
+                       step_s=coord.step_times, hash=coord.ckpt.last_hash)
+            params, _ = bind_state(state, cfg)
+            params.requires_grad_(False)
+            runs[name] = (run, params)
+            del state, coord
+        first = True
+        for name, (run, params) in runs.items():
+            eng = MemoryAugmentedEngine(cfg, params, ServeConfig(
+                capacity=SIDE_CAPACITY, retrieve_k=K, ef=EF,
+                s_cache=LM_S_CACHE, context_tokens=LM_CONTEXT,
+                max_new_tokens=GEN_NEW), device=dev)
+            torch.cuda.synchronize()
+            if first:
+                kernels.reset_launch_counts()  # the main path starts here
+                first = False
+            t0 = time.perf_counter()
+            eng.insert_documents(docs)
+            torch.cuda.synchronize()
+            run["ingest_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            run["retrieval_hash"] = eng.retrieval_hash(prompts)
+            run["read_ms"] = (time.perf_counter() - t0) * 1e3
+            run["route"] = eng.last_plan.route
+            run["memory_hash"] = eng.memory_hash()
+            eng.close()
+        counts = kernels.launch_counts()  # the main path ends here
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    clean, restarted = (runs[k][0] for k in ("clean", "restarted"))
+    if restarted["hash"] != clean["hash"]:
+        raise AssertionError(f"{cfg.name}: the restarted run's train state "
+                             f"{restarted['hash']:#x} != the clean run's "
+                             f"{clean['hash']:#x}")
+    for key in ("memory_hash", "retrieval_hash"):
+        if restarted[key] != clean[key]:
+            raise AssertionError(f"{cfg.name}: {key} differs between the "
+                                 f"clean and the restarted weights")
+    if min(counts[name] for name in LM_KERNELS) < 1:
+        raise AssertionError(f"training phase: a kernel of the path never "
+                             f"launched: {counts}")
+    return dict(cfg=cfg, clean=clean, restarted=restarted, counts=counts)
+
+
+def train_compressed(torch, dev, seed: int, cfg) -> dict:
+    """(d) ``make_compressed_train_step`` over PODS pods on the card
+    (``[dev] * PODS``), global batch COORD_BATCH, POD_STEPS steps with
+    error feedback, twice from the seed: the runs and the pods must end on
+    the same parameter bits, and the first step's ``integer_psum_grads``
+    on the card must equal the CPU's on the same per-pod gradients, copied
+    to the host, and zero residuals, bit for bit. First, one step of
+    ``cfg`` cut to TRAIN_CUT_LAYERS layers under the deterministic mode
+    lists the ops it flags."""
+    from repro_torch.core import hashing
+    from repro_torch.data.pipeline import DataConfig, DeterministicPipeline
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import compress
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import loss_and_grads, \
+        make_compressed_train_step
+    devices = [dev] * PODS
+    data = DeterministicPipeline(DataConfig(
+        seq_len=COORD_SEQ, global_batch=COORD_BATCH,
+        vocab_size=cfg.vocab_size, seed=seed))
+    optc = AdamWConfig(lr=COORD_LR, warmup_steps=1, total_steps=POD_STEPS)
+    real, calls = compress.integer_psum_grads, []
+
+    def host(tree):
+        return None if tree is None else {k: v.cpu() for k, v in tree.items()}
+
+    def capture(grads, contract="Q2.13", residuals=None):
+        mean, res = real(grads, contract, residuals)
+        if not calls:
+            # the first step's residuals are the zeros that error feedback
+            # starts from: checked on the card, not copied
+            if residuals is None or any(bool(torch.any(v)) for r in residuals
+                                        for v in r.values()):
+                raise AssertionError(f"{cfg.name}: the first step's "
+                                     f"residuals are not zeros")
+            calls.append(dict(grads=[host(g) for g in grads],
+                              mean=host(mean), res=[host(r) for r in res]))
+        return mean, res
+
+    fresh_card(torch)
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS)
+    small = tf.init_params(cut, torch.Generator(dev).manual_seed(seed))
+    _, flagged = flagged_ops(
+        torch, lambda: loss_and_grads(small, data.batch(0), cut))
+    del small
+    runs = []
+    compress.integer_psum_grads = capture
+    try:
+        for _ in range(2):
+            fresh_card(torch)
+            params = [tf.init_params(cfg, torch.Generator(d).manual_seed(seed))
+                      for d in devices]
+            opts = [adamw_init(p) for p in params]
+            step = make_compressed_train_step(cfg, optc, devices)
+            losses, ms = [], []
+            for s in range(POD_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opts, m = step(params, opts, data.batch(s))
+                losses.append(m["loss"].item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs.append(dict(losses=losses, ms=ms, hashes=[
+                hashing.hash_state_device(dict(p.named_parameters()))
+                for p in params]))
+            del params, opts
+    finally:
+        compress.integer_psum_grads = real
+    a, b = runs
+    if len(set(a["hashes"] + b["hashes"])) != 1 or a["losses"] != b["losses"]:
+        raise AssertionError(f"{cfg.name} compressed step: runs or pods "
+                             f"differ: {runs}")
+    c = calls[0]
+    zeros = [{k: torch.zeros_like(v, dtype=torch.float32)
+              for k, v in g.items()} for g in c["grads"]]
+    t0 = time.perf_counter()
+    mean, res = real(c["grads"], "Q2.13", zeros)
+    cpu_s = time.perf_counter() - t0
+    same = all(torch.equal(mean[k], c["mean"][k]) for k in mean) and all(
+        torch.equal(r[k], cr[k]) for r, cr in zip(res, c["res"]) for k in r)
+    if not same:
+        raise AssertionError(f"{cfg.name}: the card's integer_psum_grads != "
+                             f"the CPU's on the same gradients")
+    n_words = sum(v.numel() for v in c["mean"].values())
+    return dict(cfg=cfg, runs=runs, cpu_s=cpu_s, n_words=n_words,
+                flagged=flagged)
+
+
+def run_train(torch, dev, seed: int, cfg=None, coord_cfg=None) -> dict:
+    """Phase 10 (``cfg`` and ``coord_cfg`` replace TRAIN_ARCH's and
+    COORD_ARCH's CONFIGs in a CPU rehearsal)."""
+    from repro_torch.configs import get_config
+    cfg = cfg or get_config(TRAIN_ARCH)
+    coord_cfg = coord_cfg or get_config(COORD_ARCH)
+    if cfg.remat != "block":
+        raise AssertionError(f"{cfg.name}: remat {cfg.remat!r}")
+    out = {}
+    t0 = time.perf_counter()
+    out["twice"] = train_twice(torch, dev, seed, cfg)
+    out["cut"] = train_cut_numerics(torch, dev, seed, cfg)
+    out["coord"] = train_coordinator(torch, dev, seed, coord_cfg)
+    out["pods"] = train_compressed(torch, dev, seed, coord_cfg)
+    out["s"] = time.perf_counter() - t0
+    fresh_card(torch)
+    return out
+
+
+def report_train(r) -> None:
+    card, med = CARD[0], statistics.median
+    tw = r["twice"]
+    cfg, (a, b) = tw["cfg"], tw["runs"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = med(a["ms"] + b["ms"])
+    log(f"[train] {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}, "
+        f"vocabulary {cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype}, "
+        f"remat {cfg.remat}, {a['n_params']} parameters): {TRAIN_STEPS} "
+        f"AdamW steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, twice from the "
+        f"seed: step ms {[round(x, 1) for x in a['ms']]} then "
+        f"{[round(x, 1) for x in b['ms']]}, median {step_ms:.1f} ms = "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s; init {a['init_s']:.2f} s; "
+        f"peak device memory {a['peak_bytes'] / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated; {card})")
+    log(f"[train] {cfg.name} losses {a['losses']}, gradient norms "
+        f"{a['gnorms']}: equal bit for bit in both runs; parameter hash "
+        f"(reference layout, hash_state_device) {a['hash']:#018x} both "
+        f"times ({a['hash_s']:.2f} s with the move to that layout; {card})")
+    c = r["cut"]
+    log(f"[train] {c['cut'].name} cut to {c['cut'].num_layers} layers in "
+        f"f32, one batch of {TRAIN_CUT_SEQ} tokens, card against CPU: loss "
+        f"{c['loss'][0]!r} vs {c['loss'][1]!r} (relative "
+        f"{c['loss_rel']:.3g}, tolerance {TRAIN_LOSS_REL}); gradient norm "
+        f"relative {c['gnorm_rel']:.3g} ({TRAIN_GNORM_REL}); worst of "
+        f"{c['n_leaves']} gradient leaves {c['worst'][0]} "
+        f"{c['worst'][1]:.3g} ({TRAIN_GRAD_REL}); CPU {c['cpu_s']:.1f} s "
+        f"({card})")
+    co = r["coord"]
+    cl, rs = co["clean"], co["restarted"]
+    for name, run in (("clean", cl), ("restarted", rs)):
+        log(f"[train] {co['cfg'].name} Coordinator, {name}: {COORD_STEPS} "
+            f"steps of {COORD_BATCH} x {COORD_SEQ} in {run['train_s']:.2f} "
+            f"s (steps p50 {1e3 * med(run['step_s']):.1f} ms); checkpoint "
+            f"saves {[round(x, 3) for x in run['save_s']]} s, restores "
+            f"{[round(x, 3) for x in run['restore_s']]} s; events "
+            f"{[e['event'] for e in run['events']]}; the final train "
+            f"state's hash_pytree (its last checkpoint's manifest) "
+            f"{run['hash']:#018x} ({card})")
+        log(f"[train] {co['cfg'].name} {name} weights behind the token "
+            f"engine: ingest {COORD_DOCS} docs of {LM_DOC_LEN} tokens "
+            f"{run['ingest_s']:.3f} s, one batch of {QUERIES} prompts "
+            f"{run['read_ms']:.3f} ms on route {run['route']}; memory_hash "
+            f"{run['memory_hash']:#018x}, retrieval_hash "
+            f"{run['retrieval_hash']:#018x} ({card})")
+    log(f"[train] {co['cfg'].name}: the restarted run equals the clean run "
+        f"(train state, memory_hash, retrieval_hash); kernel launches "
+        f"{co['counts']}")
+    pd = r["pods"]
+    a, b = pd["runs"]
+    log(f"[train] {pd['cfg'].name} compressed step over {PODS} pods on the "
+        f"card, global batch {COORD_BATCH} x {COORD_SEQ}, {POD_STEPS} steps "
+        f"with error feedback, twice: losses {a['losses']}, step ms "
+        f"{[round(x, 1) for x in a['ms'] + b['ms']]}; every pod of both "
+        f"runs ends on {a['hashes'][0]:#018x}; the first integer_psum_grads "
+        f"({pd['n_words']} words) on the card == the CPU's bit for bit "
+        f"(CPU {pd['cpu_s']:.2f} s; {card})")
+    log(f"[train] ops that torch.use_deterministic_algorithms flags in one "
+        f"step on the card (warn_only; the mode is off everywhere else): "
+        f"{c['cut'].name} cut to {c['cut'].num_layers} layers in f32 "
+        f"{c['flagged']}, {pd['cfg'].name} cut to {TRAIN_CUT_LAYERS} layers "
+        f"{pd['flagged']}; the reruns above ran without it and repeated bit "
+        f"for bit")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3049,6 +3530,11 @@ def main() -> int:
     log(f"[families] phase 9 in {time.perf_counter() - t0:.1f} s "
         f"({CARD[0]})")
 
+    fresh_card(torch)
+    train = run_train(torch, dev, args.seed)
+    report_train(train)
+    log(f"[train] phase 10 in {train['s']:.1f} s ({CARD[0]})")
+
     kern = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/kernels/csrc/{name}.cu",
                  replaces=REPLACES[name], launches=counts[name],
@@ -3058,6 +3544,7 @@ def main() -> int:
                  launches_lm=lm["counts"][name],
                  launches_lm_families={arch: f["counts"][name]
                                        for arch, f in families.items()},
+                 launches_train=train["coord"]["counts"][name],
                  max_abs_err=r["max_abs_err"], mismatches=r["mismatches"],
                  ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

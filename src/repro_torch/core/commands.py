@@ -57,6 +57,12 @@ class CommandLog:
     def slice(self, start: int, stop: int) -> "CommandLog":
         return self._map(lambda a: a[start:stop])
 
+    def record(self, i) -> "CommandLog":
+        """Command ``i`` as a one-command log (``machine.apply_command``
+        takes one); negative ``i`` counts from the end."""
+        i = range(len(self))[int(i)]
+        return self.slice(i, i + 1)
+
     def take(self, order: torch.Tensor) -> "CommandLog":
         return self._map(lambda a: a[order])
 

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.initializers import device_of
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import moe as moe_lib
 from repro_torch.models.layers import ssm as ssm_lib
@@ -31,7 +32,7 @@ class DecoderBlock(nn.Module):
 
     def __init__(self, generator: torch.Generator, cfg: ModelConfig):
         super().__init__()
-        dev, pd = generator.device, cfg.params_dtype
+        dev, pd = device_of(generator), cfg.params_dtype
         self.ln_attn = RMSNorm(cfg.d_model, pd, dev)
         self.ln_ffn = RMSNorm(cfg.d_model, pd, dev)
         self.attn = attn_lib.Attention(generator, cfg)
@@ -76,7 +77,8 @@ class MambaLayer(nn.Module):
 
     def __init__(self, generator: torch.Generator, cfg: ModelConfig):
         super().__init__()
-        self.ln = RMSNorm(cfg.d_model, cfg.params_dtype, generator.device)
+        self.ln = RMSNorm(cfg.d_model, cfg.params_dtype,
+                         device_of(generator))
         self.mamba = ssm_lib.Mamba(generator, cfg)
 
 

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.initializers import dense_init
+from repro_torch.models.initializers import dense_init, device_of
 from repro_torch.models.layers import rope as rope_lib
 
 NEG_INF = -1e30
@@ -39,7 +39,7 @@ class Attention(nn.Module):
         super().__init__()
         D, H, KV, Dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim_)
-        pd, dev = cfg.params_dtype, generator.device
+        pd, dev = cfg.params_dtype, device_of(generator)
         self.wq = nn.Parameter(dense_init(generator, (D, H, Dh), pd,
                                           fan_in=D))
         self.wk = nn.Parameter(dense_init(generator, (D, KV, Dh), pd,

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.initializers import dense_init
+from repro_torch.models.initializers import dense_init, device_of
 from repro_torch.models.layers.norms import rmsnorm_scale
 
 SSMCache = Dict[str, torch.Tensor]
@@ -45,7 +45,7 @@ class Mamba(nn.Module):
         Din, N, G, H = (cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups,
                         cfg.ssm_nheads)
         conv_dim = Din + 2 * G * N
-        pd, dev = cfg.params_dtype, generator.device
+        pd, dev = cfg.params_dtype, device_of(generator)
 
         def zeros(n):
             return nn.Parameter(torch.zeros(n, dtype=pd, device=dev))

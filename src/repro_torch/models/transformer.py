@@ -16,6 +16,9 @@ The reference scans stacked layer params; here each stack is an
                 attention) before its mamba layers.
 
 The vlm and audio families take external embeddings and are not ported.
+``loss_fn`` is the training objective; under ``remat="block"`` each of
+the reference's scan units is recomputed in the backward pass
+(``_maybe_remat``).
 
 Parameters are float32 masters cast to the compute dtype at every use;
 norms, RoPE, the softmax, the MoE router, the SSD scan and the logits
@@ -26,14 +29,16 @@ full-length attention cache per group invocation.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks as blk
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.initializers import embed_init
+from repro_torch.models.initializers import device_of, embed_init
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import ssm as ssm_lib
 from repro_torch.models.layers.norms import RMSNorm, rmsnorm
@@ -46,7 +51,8 @@ class Transformer(nn.Module):
     docstring), ``shared`` (hybrid: ``num_shared_blocks`` decoder blocks),
     ``final_norm`` and, untied, ``lm_head`` [D, padded_vocab]."""
 
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+    def __init__(self, cfg: ModelConfig,
+                 generator: Optional[torch.Generator]):
         super().__init__()
         if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
@@ -78,15 +84,17 @@ class Transformer(nn.Module):
             self.blocks = nn.ModuleList(
                 blk.DecoderBlock(generator, cfg)
                 for _ in range(cfg.num_layers))
-        self.final_norm = RMSNorm(cfg.d_model, pd, generator.device)
+        self.final_norm = RMSNorm(cfg.d_model, pd, device_of(generator))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 embed_init(generator, (cfg.d_model, cfg.padded_vocab), pd))
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator]
+                ) -> Transformer:
     """Initialize on ``generator.device`` from its state: the same seed on
-    the same device gives the same weights."""
+    the same device gives the same weights. With None, the model is built
+    on the ``meta`` device: its parameters' shapes and dtypes, no memory."""
     return Transformer(cfg, generator)
 
 
@@ -121,48 +129,87 @@ def init_caches(cfg: ModelConfig, batch: int, s_cache: int, device
 # --------------------------------------------------------------------------- #
 
 
+def _maybe_remat(fn, cfg: ModelConfig, mode: str):
+    """Block rematerialization: under ``remat="block"`` in train mode with
+    autograd recording, ``fn``'s activations are recomputed in the
+    backward pass instead of kept (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``). The values and gradients are the
+    same bits either way."""
+    if cfg.remat == "block" and mode == "train" and torch.is_grad_enabled():
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return fn
+
+
 def _run_stack(params: Transformer, h: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig, mode: str, caches: Optional[Caches]
                ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
     """Every layer in order; returns (h, caches, the summed MoE balance
-    loss: float32 zero outside the moe family)."""
+    loss: float32 zero outside the moe family). The units that
+    ``_maybe_remat`` wraps are the reference's scan steps: a local+global
+    pair of decoder blocks (local_global), one decoder block, one mamba
+    layer, or one hybrid group with its shared block."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def cache(tree, i):
         return None if tree is None else tree[i]
 
     if cfg.family == "ssm":
+        def mamba(h, i):
+            return blk.mamba_layer(params.blocks[i], h, cfg, mode=mode,
+                                   cache_slice=cache(caches, i))
+
+        step = _maybe_remat(mamba, cfg, mode)
         new = []
-        for i, layer in enumerate(params.blocks):
-            h, nc = blk.mamba_layer(layer, h, cfg, mode=mode,
-                                    cache_slice=cache(caches, i))
+        for i in range(len(params.blocks)):
+            h, nc = step(h, i)
             new.append(nc)
         return h, (new if caches is not None else None), aux
 
     if cfg.family == "hybrid":
         c_shared = None if caches is None else caches["shared"]
         c_mamba = None if caches is None else caches["mamba"]
-        new = {"mamba": [], "shared": []}
-        for g, group in enumerate(params.blocks):
-            h, nc, _ = blk.decoder_block(
+
+        def group(h, g):
+            h, nc_shared, _ = blk.decoder_block(
                 params.shared[g % cfg.num_shared_blocks], h, positions, cfg,
                 local=False, mode=mode, cache_slice=cache(c_shared, g))
-            new["shared"].append(nc)
-            new["mamba"].append([])
-            for j, layer in enumerate(group):
+            nc_mamba = []
+            for j, layer in enumerate(params.blocks[g]):
                 h, nc = blk.mamba_layer(layer, h, cfg, mode=mode,
                                         cache_slice=cache(cache(c_mamba, g),
                                                           j))
-                new["mamba"][g].append(nc)
+                nc_mamba.append(nc)
+            return h, nc_shared, nc_mamba
+
+        step = _maybe_remat(group, cfg, mode)
+        new = {"mamba": [], "shared": []}
+        for g in range(len(params.blocks)):
+            h, nc_shared, nc_mamba = step(h, g)
+            new["shared"].append(nc_shared)
+            new["mamba"].append(nc_mamba)
         return h, (new if caches is not None else None), aux
 
+    def blocks(h, first, n):
+        """Decoder blocks first .. first + n - 1; returns (h, their caches,
+        their balance losses)."""
+        new, auxes = [], []
+        for i in range(first, first + n):
+            h, nc, a = blk.decoder_block(
+                params.blocks[i], h, positions, cfg,
+                local=cfg.layer_is_local(i), mode=mode,
+                cache_slice=cache(caches, i))
+            new.append(nc)
+            auxes.append(a)
+        return h, new, auxes
+
+    unit = 2 if cfg.attn_pattern == "local_global" else 1
+    step = _maybe_remat(blocks, cfg, mode)
     new = []
-    for i, layer in enumerate(params.blocks):
-        h, nc, a = blk.decoder_block(
-            layer, h, positions, cfg, local=cfg.layer_is_local(i), mode=mode,
-            cache_slice=cache(caches, i))
-        new.append(nc)
-        aux = aux + a
+    for first in range(0, len(params.blocks), unit):
+        h, nc, auxes = step(h, first, unit)
+        new += nc
+        for a in auxes:
+            aux = aux + a
     return h, (new if caches is not None else None), aux
 
 
@@ -213,6 +260,26 @@ def apply(params: Transformer, batch: Dict[str, torch.Tensor],
     h, _, aux = _run_stack(params, h, _positions(B, L, h.device), cfg,
                            "train", None)
     return _head(params, h, cfg), aux
+
+
+def loss_fn(params: Transformer, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (``labels`` = tokens shifted by the caller;
+    ``labels < 0`` masked) + 0.01 x the MoE balance loss. Returns (total,
+    {"loss": total, "ce", "aux"}), float32 scalars."""
+    logits, aux = apply(params, batch, cfg)
+    labels = batch["labels"].long()
+    mask = (labels >= 0).to(torch.float32)
+    safe = torch.clamp(labels, min=0)
+    lse = torch.logsumexp(logits, dim=-1)
+    # the one logit of each label: the reference's masked sum over the
+    # vocabulary adds zeros to it, so a gather gives the same value
+    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = lse - picked
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    ce = torch.sum(nll * mask) / denom
+    total = ce + 0.01 * aux
+    return total, {"loss": total, "ce": ce, "aux": aux}
 
 
 def prefill(params: Transformer, batch: Dict[str, torch.Tensor],

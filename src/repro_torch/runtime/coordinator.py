@@ -1,7 +1,8 @@
-"""Serve-side failover: promotion of verified replicas and lease-based
-failure detection (DESIGN.md §9, §12).
+"""Fault-tolerant coordinators (the port of ``repro.runtime.coordinator``):
+training checkpoint / restart, and serve-side failover by replica
+promotion with lease-based failure detection (DESIGN.md §9, §12).
 
-The serving half of ``repro.runtime.coordinator``, ported: when a primary
+The serving half: when a primary
 shard host dies (``TransportError`` / dead subprocess),
 ``promote_on_primary_loss`` picks the surviving replica with the max
 proven durable cursor, proves the takeover with one ``state_hash``
@@ -14,15 +15,156 @@ and then reconciles the promoted fleet to one global cursor through the
 back). ``FailureDetector`` heartbeats the primaries under a
 ``LeaseConfig``, owns the fleet's fencing epoch and promotes on expiry.
 
-The reference module's training half (``Coordinator``, ``RunConfig``,
-``StragglerPolicy``) comes with the port's training stack.
+The training half (``Coordinator``, ``RunConfig``, ``StragglerPolicy``)
+wraps a train loop with the large-scale survival kit:
+
+  * periodic deterministic checkpoints (hash-manifested, in the
+    reference's layout through ``checkpoint.manager.CheckpointManager``);
+  * failure detection hooks (in tests: injected via ``failure_injector``);
+  * the restart path: checkpoint restore, then the step-indexed data
+    pipeline resumes bit-identically;
+  * straggler mitigation: a rank slower than ``deadline_factor`` x the
+    median is flagged, and after ``evict_after`` consecutive flags it is
+    treated as failed ("fail-slow = fail").
+
+The loop is deliberately simple: the state machine is deterministic, so
+recovery is replay.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+import statistics
+import time
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+
+from repro_torch.checkpoint.manager import CheckpointManager
+
+
+# --------------------------------------------------------------------------- #
+# training: checkpoint / restart and the straggler policy
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class StragglerPolicy:
+    deadline_factor: float = 3.0   # step slower than 3x median = flagged
+    evict_after: int = 3           # consecutive flags before eviction
+    window: int = 20               # median window
+
+
+@dataclasses.dataclass
+class RunConfig:
+    total_steps: int
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "checkpoints"
+    keep_checkpoints: int = 3
+    straggler: StragglerPolicy = dataclasses.field(
+        default_factory=StragglerPolicy)
+    max_restarts: int = 8
+
+
+class Coordinator:
+    """Drives (state, batch) -> (state, metrics) steps with checkpoint /
+    restart. ``batch_fn(step)`` must be a pure function of the step."""
+
+    def __init__(
+        self,
+        run: RunConfig,
+        train_step: Callable,
+        batch_fn: Callable[[int], Any],
+        init_state_fn: Callable[[], Any],
+        failure_injector: Optional[Callable[[int], Optional[str]]] = None,
+        on_restart: Optional[Callable[[int], None]] = None,
+    ):
+        self.run = run
+        self.train_step = train_step
+        self.batch_fn = batch_fn
+        self.init_state_fn = init_state_fn
+        self.failure_injector = failure_injector
+        self.on_restart = on_restart
+        self.ckpt = CheckpointManager(run.checkpoint_dir,
+                                      keep=run.keep_checkpoints,
+                                      async_save=False)
+        self.step_times: List[float] = []
+        self.flag_counts: Dict[int, int] = {}
+        self.restarts = 0
+        self.events: List[dict] = []
+
+    def _check_stragglers(self, rank_times: Dict[int, float]) -> List[int]:
+        """Returns the ranks to evict under the fail-slow policy."""
+        pol = self.run.straggler
+        if len(rank_times) < 2:
+            return []
+        med = statistics.median(rank_times.values())
+        evict = []
+        for rank, t in rank_times.items():
+            if t > pol.deadline_factor * max(med, 1e-9):
+                self.flag_counts[rank] = self.flag_counts.get(rank, 0) + 1
+                if self.flag_counts[rank] >= pol.evict_after:
+                    evict.append(rank)
+            else:
+                self.flag_counts[rank] = 0
+        return evict
+
+    def train(self, rank_times_fn: Optional[
+            Callable[[int], Dict[int, float]]] = None) -> Any:
+        """Run to completion, surviving injected failures; returns the final
+        state."""
+        step = 0
+        proto = self.init_state_fn()
+        restored = self.ckpt.restore_latest(proto)
+        if restored is not None:
+            state, step, _ = restored
+            self.events.append({"event": "resume", "step": step})
+        else:
+            state = proto
+        del proto
+
+        while step < self.run.total_steps:
+            try:
+                if state is None:
+                    state = self.init_state_fn()
+                fail = (self.failure_injector(step)
+                        if self.failure_injector else None)
+                if fail:
+                    raise RuntimeError(f"injected failure: {fail}")
+
+                t0 = time.monotonic()
+                batch = self.batch_fn(step)
+                state, metrics = self.train_step(state, batch)
+                self.step_times.append(time.monotonic() - t0)
+
+                if rank_times_fn is not None:
+                    evict = self._check_stragglers(rank_times_fn(step))
+                    if evict:
+                        self.events.append(
+                            {"event": "straggler_evict", "ranks": evict,
+                             "step": step})
+                        raise RuntimeError(f"stragglers evicted: {evict}")
+
+                step += 1
+                if step % self.run.checkpoint_every == 0 or \
+                        step == self.run.total_steps:
+                    self.ckpt.save(state, step)
+                    self.events.append({"event": "checkpoint", "step": step})
+            except Exception as e:  # noqa: BLE001 — the recovery path
+                self.restarts += 1
+                self.events.append({"event": "failure", "step": step,
+                                    "error": str(e)})
+                if self.restarts > self.run.max_restarts:
+                    raise
+                if self.on_restart:
+                    self.on_restart(self.restarts)
+                state = None  # the failed run's state is not reused
+                restored = self.ckpt.restore_latest(self.init_state_fn())
+                if restored is None:
+                    step = 0
+                else:
+                    state, step, _ = restored
+                self.events.append({"event": "restart", "from_step": step})
+        return state
 
 
 # --------------------------------------------------------------------------- #

@@ -55,7 +55,12 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.configs.zamba2_2_7b",
             "repro_torch.models.blocks", "repro_torch.models.transformer",
             "repro_torch.models.convert",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve",
+            "repro_torch.models.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.train", "repro_torch.train.step",
+            "repro_torch.optim.adamw", "repro_torch.optim.compress",
+            "repro_torch.data.pipeline", "repro_torch.runtime.elastic"
+            } <= set(mods)
 
 
 def _imported_names(path):
