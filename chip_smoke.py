@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--docs 3072] [--seed 0]
+    python3 chip_smoke.py [--docs 2048] [--seed 0]
 
 Phases (any failure raises and exits non-zero):
 
@@ -37,7 +37,7 @@ Phases (any failure raises and exits non-zero):
    counts of each library (``cuobjdump -sass``);
 3. engine — the flat engine at full width (d = 2304, gemma2-2b's d_model;
    131072-row arena; Q16.16; ef_coarse = 256): ingest seeded float32
-   embeddings in batches of 512 (3072 documents by default; after the
+   embeddings in batches of 512 (2048 documents by default; after the
    fourth batch, the ``memory_hash`` and the exact route's
    ``retrieval_hash`` of one query batch are recorded for phase 6, their
    launches counted apart), delete 1 % and re-link, retrieve batches
@@ -68,14 +68,16 @@ Phases (any failure raises and exits non-zero):
    equal), 1 % deleted, ``checkpoint()``, one more batch; its state hash
    and the exact and coarse ``retrieval_hash`` of 64 queries are recorded
    and a fresh engine's ``recover()`` over the directory must give all
-   three, with ``replay_log_fresh() == state_hash()``; the last WAL
-   segment then loses 5 bytes, and recover on the card must land on the
-   last whole record with the hash of that prefix applied in memory,
-   ``rollback_to`` the checkpoint must give the checkpoint's hash, and the
-   CPU's recovery of the same directory (its own reader over the torn
-   WAL, the surviving tail applied on the CPU to that one restore of the
-   checkpoint) must equal the card's;
-   a group-commit engine (nothing durable before
+   three, with ``replay_log_fresh() == state_hash()``; a durable engine
+   over an 8192-row arena (``SIDE_CAPACITY``, d = 2304: a full-arena
+   restore is a 30-60 s chunk loop on the host) ingests a batch,
+   ``checkpoint()``s and ingests one more; its last WAL segment then loses
+   5 bytes, and recover on the card must land on the last whole record
+   with the hash of that prefix applied in memory, ``rollback_to`` the
+   checkpoint must give the checkpoint's hash, and the CPU's recovery of
+   the same directory (its own reader over the torn WAL, the surviving
+   tail applied on the CPU to that one restore of the checkpoint) must
+   equal the card's; a group-commit engine (nothing durable before
    the read barrier) and a compaction engine on a delete-heavy log must
    reach the in-memory engine's hash (both at d = 2304 over an 8192-row
    arena, ``SIDE_CAPACITY``); the JAX-written interop store
@@ -206,7 +208,37 @@ Phases (any failure raises and exits non-zero):
    twice: every pod of both runs on the same parameter bits, and the first
    step's ``integer_psum_grads`` on the card equal to the CPU's on the same
    per-pod gradients bit for bit; before it, one step of mamba2-130m cut
-   to 2 layers under the deterministic mode lists the ops it flags.
+   to 2 layers under the deterministic mode lists the ops it flags;
+11. external embeddings — qwen2-vl-7b and musicgen-large at full width and
+   depth (bf16 compute over f32 masters, from the seed on the card, their
+   parameter counts checked): prefill on seeded embeddings [8, 48]
+   (qwen2-vl with non-text M-RoPE ``positions_3d``) and 32 greedy tokens,
+   each decode step fed the embedding row of the token it chose, twice:
+   equal logits and tokens bit for bit; prefill and decode ms (CUDA
+   events) and the peak memory; each model's first 2 layers with its
+   head in f32 on the card and, copied to the host, on the CPU: ``apply``,
+   prefill and 4 decode steps within 1e-4 relative;
+12. multi-device — over (data 2, model 2) on ``[cuda] * 4``: (a)
+   granite-moe-3b-a800m's CONFIG in f32 placed by the sharding rules
+   (``models.placement``), ``make_prefill_step`` [8, 48] and 8 greedy
+   ``make_decode_step`` steps, the MoE expert-parallel (48 padded experts
+   / 2), twice and equal bit for bit, against the same weights unplaced on
+   each data shard's prompts (the expert-parallel capacity is per data
+   shard, as the reference's): logits within 1e-4 relative, the same
+   tokens; (b) its first 4 layers, 2 placed ``make_train_step`` steps of 8
+   x 128 at lr 1e-5 against the same steps unplaced: first loss within
+   1e-5, each gradient leaf within 1e-4 and the parameters after step 2
+   within 1e-5 (relative Frobenius over all of them; the worst leaf is
+   printed); (c) phi3.5-moe's 2 MoE layers at
+   full width in f32 on (data 1, model 4): expert-parallel == the
+   one-device path bit for bit on 8 x 64 tokens (top-2);
+13. roofline — the op walk (``roofline.op_walk``) on ``meta`` tensors over
+   phase 10(a)'s step, phase 8's decode step and one rank's program of
+   phase 12(a)'s placed prefill, each beside the time its phase measured
+   and the share that time is of its bound (the H100 SXM data sheet's
+   constants, ``roofline.analysis``); then ``launch.dryrun``'s gemma2-2b x
+   train_4k cell on the single production mesh. Phases 11-13 launch none
+   of the four kernels; their counts are read and printed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs the repository's ``src/``
@@ -349,6 +381,44 @@ COORD_LR = 3e-3  # launch/train.py's default
 COORD_DOCS = FAMILY_DOCS  # phase 2 holds the kernels at phase 9's shapes
 PODS = 4
 POD_STEPS = 2
+# phase 11: the vlm and audio backbones on external embeddings at full width
+# and depth (bf16 compute over f32 masters): EXT_BATCH x EXT_LEN seeded
+# embeddings (qwen2-vl with non-text M-RoPE positions), prefill and EXT_NEW
+# greedy decode steps fed the embedding rows of their own tokens, twice;
+# then EXT_CUT_LAYERS layers in f32 on the card and on the CPU
+EXT_ARCHS = ("qwen2-vl-7b", "musicgen-large")
+EXT_PARAMS = {"qwen2-vl-7b": 7_615_616_512, "musicgen-large": 2_424_506_368}
+EXT_BATCH = 8
+EXT_LEN = 48
+EXT_NEW = 32
+EXT_S_CACHE = 128
+EXT_CUT_LAYERS = 2
+EXT_CUT_BATCH = 2
+EXT_F32_REL = 1e-4
+# phase 12: multi-device execution over MESH_SHAPE on [cuda] * 4:
+# (a) MD_ARCH's CONFIG in f32, placed, prefill [MD_BATCH, MD_LEN] and MD_NEW
+# greedy steps; (b) its first MD_TRAIN_LAYERS layers, MD_TRAIN_STEPS steps of
+# MD_TRAIN_BATCH x MD_TRAIN_SEQ at MD_LR; (c) phi3.5-moe's PHI_LAYERS MoE
+# layers at full width on (data 1, model 4): expert-parallel == dense
+MESH_SHAPE = (2, 2)
+MD_ARCH = "granite-moe-3b-a800m"
+MD_BATCH = 8
+MD_LEN = 48
+MD_NEW = 8
+MD_S_CACHE = 64
+MD_LOGITS_REL = 1e-4
+MD_TRAIN_LAYERS = 4
+MD_TRAIN_STEPS = 2
+MD_TRAIN_BATCH = 8
+MD_TRAIN_SEQ = 128
+MD_LR = 1e-5
+MD_LOSS_REL = 1e-5
+MD_GRAD_REL = 1e-4
+MD_PARAM_REL = 1e-5
+EP_TOKENS = (8, 64)
+# phase 13: the op walk of three measured steps, and one dry-run cell
+DRY_SHAPE = "train_4k"
+HAND_OPS_TRAIN = 2.1e13  # PERF.md §2's estimate of phase 10(a)'s step
 
 REPLACES = {
     "qboundary": "src/repro/kernels/qboundary/kernel.py:29",
@@ -1437,23 +1507,32 @@ def run_durable(torch, dev, seed: int) -> dict:
         counts = kernels.launch_counts()  # ---- the durable path ends here ----
         del b
 
-        # a torn tail: the last segment loses a few bytes; the card
-        # recovers it. The CPU's recovery of the same directory reads the
-        # torn WAL itself (a copy taken before the card's open truncates
-        # it) and applies the surviving tail to the card's one restore of
-        # the checkpoint (the rollback's): a full-arena restore is a
-        # 30-60 s chunk loop on the host either way (PERF.md §5)
-        seg = sorted((tmp / "a" / "wal").glob("seg_*.wal"))[-1]
+        # a torn tail, over SIDE_CAPACITY rows: a checkpoint, one more
+        # batch, and the last segment loses a few bytes; the card recovers
+        # it. The CPU's recovery of the same directory reads the torn WAL
+        # itself (a copy taken before the card's open truncates it) and
+        # applies the surviving tail to the card's one restore of the
+        # checkpoint (the rollback's)
+        tt = MemoryAugmentedEngine(DIM, ServeConfig(
+            durable_dir=str(tmp / "t"), **side), device=dev)
+        tt.insert_documents(batches[0])
+        tt.checkpoint()
+        t_ckpt, h_ckpt, at_ckpt = tt.flush(), tt.state_hash(), tt.memory
+        tt.insert_documents(batches[1])
+        t_tt, log_end = tt.flush(), tt.log
+        tt.close()
+        del tt
+        seg = sorted((tmp / "t" / "wal").glob("seg_*.wal"))[-1]
         with open(seg, "r+b") as f:
             f.truncate(seg.stat().st_size - 5)
-        shutil.copytree(tmp / "a" / "wal", tmp / "torn_wal")
+        shutil.copytree(tmp / "t" / "wal", tmp / "torn_wal")
         b2 = MemoryAugmentedEngine(DIM, ServeConfig(
-            durable_dir=str(tmp / "a"), **base), device=dev)
+            durable_dir=str(tmp / "t"), **side), device=dev)
         t_torn, h_torn = timed("recover after a torn tail", b2.recover)
         prefix = timed("the same prefix applied in memory", lambda:
                        machine.bulk_apply(at_ckpt,
                                           log_end.slice(t_ckpt, t_torn)))
-        if t_torn != t_end - 1 or h_torn != hashing.hash_state_device(prefix):
+        if t_torn != t_tt - 1 or h_torn != hashing.hash_state_device(prefix):
             raise AssertionError("torn-tail recover != the in-memory prefix")
         cpu_wal = wal_lib.WriteAheadLog(tmp / "torn_wal")
         if cpu_wal.torn_tail_dropped == 0 or cpu_wal.t != t_torn:
@@ -1468,7 +1547,9 @@ def run_durable(torch, dev, seed: int) -> dict:
                            b2.memory.to("cpu"), tail))
         if hashing.hash_state_device(on_cpu) != h_torn:
             raise AssertionError("torn-tail recovery: card and CPU differ")
+        b2.close()
         del b2, prefix, at_ckpt, on_cpu, cpu_wal, tail
+        out["t_torn_ckpt"] = t_ckpt
 
         # group commit: the first batch buffers until the read barrier
         dead0 = rng.choice(BATCH, size=BATCH // 100, replace=False)
@@ -1569,7 +1650,8 @@ def report_durable(r) -> None:
         f"all three, replay_log_fresh equals state_hash")
     log(f"[durable] torn tail (5 bytes cut): recover on the card lands on t="
         f"{r['torn'][0]} with {r['torn'][1]:#018x} == the in-memory prefix; "
-        f"rollback_to({r['t_ckpt']}) equals the checkpoint's hash; the CPU's "
+        f"rollback_to({r['t_torn_ckpt']}) equals the checkpoint's hash "
+        f"({SIDE_CAPACITY} rows); the CPU's "
         f"recovery (its own reader over the torn WAL, the surviving tail "
         f"on that restored checkpoint) "
         f"equals the card's")
@@ -3409,12 +3491,555 @@ def report_train(r) -> None:
         f"for bit")
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the vlm and audio backbones on external embeddings
+# --------------------------------------------------------------------------- #
+
+
+def ext_inputs(cfg, rng, batch: int, length: int) -> dict:
+    """Seeded embeddings [batch, length, D] and, under M-RoPE, non-text
+    ``positions_3d`` [3, batch, length]: a t / h / w grid of 2 x 4 x 6
+    patches (the three streams differ)."""
+    out = {"embeds": rng.standard_normal(
+        (batch, length, cfg.d_model)).astype(np.float32)}
+    if cfg.rope_type == "mrope":
+        i = np.arange(length)
+        grid = np.stack([i // 24, (i % 24) // 6, i % 6]).astype(np.int32)
+        out["positions_3d"] = np.broadcast_to(
+            grid[:, None], (3, batch, length)).copy()
+    return out
+
+
+def ext_generate(torch, tf, params, cfg, inputs: dict, dev):
+    """Prefill on the embeddings, then EXT_NEW - 1 greedy decode steps,
+    each fed the embedding row of the token it chose (text RoPE at the
+    next positions, as the reference decodes): (tokens [B, EXT_NEW], every
+    step's logits, prefill ms, decode ms per step; CUDA events)."""
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
+    B, L = batch["embeds"].shape[:2]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, caches = tf.prefill(params, batch, cfg, EXT_S_CACHE)
+    ev[1].record()
+    toks, seen = [], [logits]
+    for t in range(EXT_NEW):
+        tok = torch.argmax(logits, dim=-1)
+        toks.append(tok)
+        if t + 1 == EXT_NEW:
+            break
+        emb = params.embed[tok][:, None].to(cfg.compute_dtype)
+        pos = torch.full((B, 1), L + t, dtype=torch.int32, device=dev)
+        logits, caches = tf.decode_step(params, caches, None, pos, cfg,
+                                        embeds=emb)
+        seen.append(logits)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return (torch.stack(toks, 1), torch.stack(seen),
+            ev[0].elapsed_time(ev[1]),
+            ev[1].elapsed_time(ev[2]) / (EXT_NEW - 1))
+
+
+def ext_cut(torch, tf, params, cfg, inputs: dict, dev) -> dict:
+    """The first EXT_CUT_LAYERS layers with the embedding table, final
+    norm and head (shared, not copied) in f32 on the card, and the same
+    weights copied to the host on the CPU: ``apply``'s logits, prefill and
+    four decode steps on seeded embeddings; the largest relative error."""
+    ccfg = dataclasses.replace(cfg, num_layers=EXT_CUT_LAYERS,
+                               dtype="float32")
+    cut = torch.nn.Module()
+    cut.embed, cut.final_norm, cut.lm_head = (params.embed,
+                                              params.final_norm,
+                                              params.lm_head)
+    cut.blocks = torch.nn.ModuleList(list(params.blocks)[:EXT_CUT_LAYERS])
+    t0 = time.perf_counter()
+    host = tf.init_params(ccfg, None)
+    host.load_state_dict({k: v.cpu() for k, v in cut.state_dict().items()},
+                         assign=True)
+    copy_s = time.perf_counter() - t0
+    small = {k: v[:EXT_CUT_BATCH] if k != "positions_3d"
+             else v[:, :EXT_CUT_BATCH] for k, v in inputs.items()}
+    steps = np.random.default_rng(7).standard_normal(
+        (4, EXT_CUT_BATCH, 1, cfg.d_model)).astype(np.float32)
+
+    def run(model, device):
+        b = {k: torch.as_tensor(v, device=device) for k, v in small.items()}
+        outs = [tf.apply(model, b, ccfg)[0]]
+        logits, caches = tf.prefill(model, b, ccfg, EXT_LEN + 8)
+        outs.append(logits)
+        for t, e in enumerate(steps):
+            pos = torch.full((EXT_CUT_BATCH, 1), EXT_LEN + t,
+                             dtype=torch.int32, device=device)
+            logits, caches = tf.decode_step(
+                model, caches, None, pos, ccfg,
+                embeds=torch.as_tensor(e, device=device))
+            outs.append(logits)
+        return [o.float().cpu() for o in outs]
+
+    with torch.no_grad():
+        card = run(cut, dev)
+        t0 = time.perf_counter()
+        cpu = run(host, torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(card, cpu))
+    return dict(rel=rel, copy_s=copy_s, cpu_s=cpu_s, outputs=len(card))
+
+
+def run_external(torch, dev, seed: int, arch: str, cfg=None) -> dict:
+    """Phase 11 for one arch (``cfg`` replaces its CONFIG in a CPU
+    rehearsal): the backbone from the seed on the card, prefill + greedy
+    decode on seeded embeddings twice, equal bit for bit; then its f32 cut
+    against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    full = cfg is None
+    cfg = cfg or get_config(arch)
+    inputs = ext_inputs(cfg, np.random.default_rng(seed + 11), EXT_BATCH,
+                        EXT_LEN)
+    fresh_card(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(dev).manual_seed(seed))
+    params.requires_grad_(False)
+    torch.cuda.synchronize()
+    out = dict(cfg=cfg, init_s=time.perf_counter() - t0,
+               n_params=sum(p.numel() for p in params.parameters()))
+    if full and out["n_params"] != EXT_PARAMS[arch]:
+        raise AssertionError(f"{arch}: {out['n_params']} parameters != "
+                             f"{EXT_PARAMS[arch]}")
+    with torch.no_grad():
+        runs = [ext_generate(torch, tf, params, cfg, inputs, dev)
+                for _ in range(2)]
+    (tok_a, log_a, *_), (tok_b, log_b, *_) = runs
+    if not (torch.equal(tok_a, tok_b) and torch.equal(log_a, log_b)):
+        raise AssertionError(f"{cfg.name}: the rerun's logits or tokens "
+                             "differ")
+    if not bool(torch.isfinite(log_a[..., :cfg.vocab_size]).all()) or \
+            int(tok_a.min()) < 0 or int(tok_a.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: non-finite logits or tokens out "
+                             "of the vocabulary")
+    out.update(peak_bytes=torch.cuda.max_memory_allocated(),
+               prefill_ms=[r[2] for r in runs],
+               decode_ms=[r[3] for r in runs], tokens=tok_a.cpu(),
+               cut=ext_cut(torch, tf, params, cfg, inputs, dev))
+    if not out["cut"]["rel"] <= EXT_F32_REL:
+        raise AssertionError(f"{cfg.name}: f32 cut, card against CPU: "
+                             f"{out['cut']['rel']:.3g} > {EXT_F32_REL}")
+    del params
+    fresh_card(torch)
+    return out
+
+
+def report_external(r) -> None:
+    cfg, card, c = r["cfg"], CARD[0], r["cut"]
+    pos = " with non-text M-RoPE positions" if cfg.rope_type == "mrope" \
+        else ""
+    log(f"[external] {cfg.name} ({cfg.family}): {cfg.num_layers} layers, "
+        f"d={cfg.d_model}, vocabulary {cfg.vocab_size}, {cfg.dtype} over "
+        f"{cfg.param_dtype}: {r['n_params']} parameters, initialized on the "
+        f"card in {r['init_s']:.3f} s")
+    log(f"[external] {cfg.name} prefill [{EXT_BATCH}, {EXT_LEN}] on seeded "
+        f"embeddings{pos}, then {EXT_NEW} greedy tokens (decode fed its "
+        f"tokens' embedding rows), twice: the same logits and tokens bit "
+        f"for bit; prefill {r['prefill_ms'][0]:.3f} / "
+        f"{r['prefill_ms'][1]:.3f} ms, decode {r['decode_ms'][0]:.3f} / "
+        f"{r['decode_ms'][1]:.3f} ms per step; peak "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    log(f"[external] {cfg.name} first {EXT_CUT_LAYERS} layers + head in "
+        f"f32, card against CPU ({c['outputs']} outputs: apply, prefill, 4 "
+        f"decode steps): max relative error {c['rel']:.3g} (tolerance "
+        f"{EXT_F32_REL}); copy to the host {c['copy_s']:.1f} s, CPU runs "
+        f"{c['cpu_s']:.1f} s")
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: multi-device execution
+# --------------------------------------------------------------------------- #
+
+
+def md_mesh(dev, shape=MESH_SHAPE):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(("data", "model"), shape, (dev,) * (shape[0] * shape[1]))
+
+
+def greedy(torch, prefill, decode, tokens, n_new: int):
+    """``prefill(tokens)`` then greedy ``decode(caches, tok, pos)`` steps:
+    (tokens [B, n_new], every step's logits)."""
+    logits, caches = prefill(tokens)
+    B, L = tokens.shape
+    out, seen = [], [logits]
+    for t in range(n_new):
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        out.append(tok)
+        if t + 1 == n_new:
+            break
+        pos = torch.full((B, 1), L + t, dtype=torch.int32,
+                         device=tokens.device)
+        logits, caches = decode(caches, tok, pos)
+        seen.append(logits)
+    return torch.cat(out, 1), seen
+
+
+def rel_err(torch, got, want, vocab: int) -> float:
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def md_serve(torch, dev, seed: int, cfg) -> dict:
+    """(a): ``cfg`` placed over MESH_SHAPE, prefill + greedy decode through
+    ``make_prefill_step`` / ``make_decode_step``, twice; against the same
+    weights unplaced on each data shard's prompts (the expert-parallel
+    capacity is per data shard, as the reference's)."""
+    from repro_torch.models import placement
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import moe
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    rng = np.random.default_rng(seed + 12)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+        MD_BATCH, MD_LEN), dtype=np.int32), device=dev)
+    fresh_card(torch)
+    params = tf.init_params(cfg, torch.Generator(dev).manual_seed(seed))
+    params.requires_grad_(False)
+    mesh = md_mesh(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = placement.place(params, cfg, mesh)
+    torch.cuda.synchronize()
+    out = dict(cfg=cfg, place_s=time.perf_counter() - t0,
+               shard_bytes=sum(t.numel() * t.element_size()
+                               for t in placed.shards[0].values()),
+               n_params=sum(p.numel() for p in params.parameters()))
+    prefill, decode = make_prefill_step(cfg, MD_S_CACHE), \
+        make_decode_step(cfg)
+    runs, paths0 = [], dict(moe.PATHS)
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, pc = prefill(placed, {"tokens": tokens})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got, seen = greedy(torch, lambda t: (logits, pc),
+                               lambda c, tok, pos: decode(placed, c, tok,
+                                                          pos),
+                               tokens, MD_NEW)
+            torch.cuda.synchronize()
+            runs.append(dict(tokens=got, logits=seen,
+                             prefill_ms=(t1 - t0) * 1e3,
+                             decode_ms=(time.perf_counter() - t1) * 1e3
+                             / (MD_NEW - 1)))
+        out["paths"] = {k: v - paths0[k] for k, v in moe.PATHS.items()}
+        a, b = runs
+        if not (torch.equal(a["tokens"], b["tokens"]) and all(
+                torch.equal(x, y) for x, y in zip(a["logits"],
+                                                  b["logits"]))):
+            raise AssertionError("placed rerun differs")
+        # the same weights unplaced, one data shard's prompts at a time
+        dp = mesh.shape["data"]
+        per = MD_BATCH // dp
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = [greedy(torch, lambda t: tf.prefill(params, {"tokens": t},
+                                                    cfg, MD_S_CACHE),
+                        lambda c, tok, pos: tf.decode_step(params, c, tok,
+                                                           pos, cfg),
+                        tokens[i * per:(i + 1) * per], MD_NEW)
+                 for i in range(dp)]
+        torch.cuda.synchronize()
+        out["unplaced_s"] = time.perf_counter() - t0
+    want_tokens = torch.cat([p[0] for p in parts])
+    rels = [rel_err(torch, g, torch.cat([p[1][s] for p in parts]),
+                    cfg.vocab_size) for s, g in enumerate(a["logits"])]
+    out.update(runs=runs, rel=max(rels),
+               same_tokens=bool(torch.equal(a["tokens"], want_tokens)),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if out["paths"]["expert_parallel"] == 0:
+        raise AssertionError("the expert-parallel path did not run")
+    if not out["rel"] <= MD_LOGITS_REL or not out["same_tokens"]:
+        raise AssertionError(f"placed != unplaced: logits {out['rel']:.3g}, "
+                             f"tokens equal {out['same_tokens']}")
+    del placed, params, parts, runs
+    fresh_card(torch)
+    return out
+
+
+def md_train(torch, dev, seed: int, cfg) -> dict:
+    """(b): the first MD_TRAIN_LAYERS layers placed, MD_TRAIN_STEPS of
+    ``make_train_step`` at MD_LR, against the same steps unplaced
+    (``placement.unplaced_loss_and_grads``: each data shard's batch on its
+    own, as the expert-parallel capacity is per shard)."""
+    from repro_torch.models import placement
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train.step import make_train_step
+    cfg = dataclasses.replace(cfg, num_layers=MD_TRAIN_LAYERS)
+    rng = np.random.default_rng(seed + 13)
+    batches = []
+    for _ in range(MD_TRAIN_STEPS):
+        t = rng.integers(0, cfg.vocab_size, (MD_TRAIN_BATCH,
+                                             MD_TRAIN_SEQ + 1), dtype=np.int32)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    fresh_card(torch)
+    model = tf.init_params(cfg, torch.Generator(dev).manual_seed(seed))
+    mesh = md_mesh(dev)
+    optc = AdamWConfig(lr=MD_LR)
+    placed = placement.place(model, cfg, mesh)
+    popt = placement.place_opt(adamw_init(model), placed)
+    metrics, grads = placement.loss_and_grads(placed, batches[0], cfg)
+    loss, want = placement.unplaced_loss_and_grads(model, batches[0], cfg,
+                                                   mesh)
+    loss_rel = abs(float(metrics["loss"]) - float(loss)) / abs(float(loss))
+    grad_rels = {k: float(torch.linalg.vector_norm(placement.gather_like(
+        grads, placed, k, dev) - want[k]) / torch.linalg.vector_norm(
+            want[k]).clamp(min=1e-30)) for k in placed.shapes}
+    grad_rel = max(grad_rels.values())
+    del grads
+    step = make_train_step(cfg, optc)
+    ms = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(placed, popt, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    opt = adamw_init(model)
+    for b in batches:
+        _, g = placement.unplaced_loss_and_grads(model, b, cfg, mesh)
+        adamw_update(optc, model, g, opt)
+    # the parameters as one vector, relative Frobenius; the worst leaf is
+    # reported beside it (a zero-initialized norm scale holds only its two
+    # AdamW updates, which normalize each gradient entry)
+    named = dict(model.named_parameters())
+    sq_diff = sq_norm = 0.0
+    leaf_rels = {}
+    for k in placed.shapes:
+        d = float(torch.linalg.vector_norm(placed.gather(k)
+                                           - named[k].detach())) ** 2
+        n = float(torch.linalg.vector_norm(named[k].detach())) ** 2
+        sq_diff, sq_norm = sq_diff + d, sq_norm + n
+        leaf_rels[k] = (d / max(n, 1e-60)) ** 0.5
+    param_rel = (sq_diff / sq_norm) ** 0.5
+    worst = max(leaf_rels, key=leaf_rels.get)
+    out = dict(cfg=cfg, loss=float(metrics["loss"]), loss_rel=loss_rel,
+               grad_rel=grad_rel, param_rel=param_rel, ms=ms,
+               worst=(worst, leaf_rels[worst], grad_rels[worst]))
+    if not (loss_rel <= MD_LOSS_REL and grad_rel <= MD_GRAD_REL
+            and param_rel <= MD_PARAM_REL):
+        raise AssertionError(
+            f"placed training != unplaced: loss {loss_rel:.3g}, gradients "
+            f"{grad_rel:.3g}, parameters {param_rel:.3g}")
+    del placed, popt, model, opt
+    fresh_card(torch)
+    return out
+
+
+def md_expert_parallel(torch, dev, seed: int, cfg=None) -> dict:
+    """(c): phi3.5-moe's PHI_LAYERS MoE layers at full width in f32, one at
+    a time: ``moe_ffn`` placed over (data 1, model 4) takes the
+    expert-parallel path and equals the one-device path bit for bit on
+    EP_TOKENS tokens (top-2: each token's output is the same sum of the
+    same two terms)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import collectives, placement
+    from repro_torch.models.layers import moe
+    cfg = cfg or dataclasses.replace(get_config(PHI_ARCH), dtype="float32")
+    mesh = md_mesh(dev, (1, 4))
+    gen = torch.Generator(dev).manual_seed(seed + 14)
+    out = dict(cfg=cfg, ms=[], dense_ms=[])
+    fresh_card(torch)
+    for _ in range(PHI_LAYERS):
+        layer = moe.MoE(gen, cfg)
+        layer.requires_grad_(False)
+        x = torch.randn(EP_TOKENS + (cfg.d_model,), generator=gen,
+                        device=dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, aux = moe.moe_ffn(layer, x, cfg)
+            torch.cuda.synchronize()
+            out["dense_ms"].append((time.perf_counter() - t0) * 1e3)
+            placed = placement.place(layer, cfg, mesh)
+            shards, sharded = placement.place_batch({"embeds": x}, mesh)
+            before = moe.PATHS["expert_parallel"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ranks = collectives.spmd(mesh, lambda r: moe.moe_ffn(
+                placed.view(r), shards[r]["embeds"], cfg),
+                [(r,) for r in range(mesh.size)], batch_sharded=sharded)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if moe.PATHS["expert_parallel"] != before + mesh.size:
+            raise AssertionError("the expert-parallel path did not run")
+        for y_r, aux_r in ranks:
+            if not (torch.equal(y_r.to(dev), y)
+                    and torch.equal(aux_r.to(dev), aux)):
+                raise AssertionError("expert-parallel MoE != the one-device "
+                                     "path")
+        del layer, placed, shards, ranks, x, y
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    fresh_card(torch)
+    return out
+
+
+def run_multidevice(torch, dev, seed: int, cfg=None, phi_cfg=None) -> dict:
+    """Phase 12 (``cfg`` and ``phi_cfg`` replace MD_ARCH's CONFIG and
+    phi3.5-moe's in a CPU rehearsal)."""
+    from repro_torch.configs import get_config
+    cfg = cfg or dataclasses.replace(get_config(MD_ARCH), dtype="float32")
+    t0 = time.perf_counter()
+    out = dict(serve=md_serve(torch, dev, seed, cfg),
+               train=md_train(torch, dev, seed, cfg),
+               ep=md_expert_parallel(torch, dev, seed, phi_cfg))
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def report_multidevice(r) -> None:
+    card, sv, tr, ep = CARD[0], r["serve"], r["train"], r["ep"]
+    cfg = sv["cfg"]
+    a, b = sv["runs"]
+    log(f"[multidevice] {cfg.name} CONFIG in f32 ({sv['n_params']} "
+        f"parameters) placed over (data {MESH_SHAPE[0]}, model "
+        f"{MESH_SHAPE[1]}) on 4 ranks of one card in {sv['place_s']:.2f} s, "
+        f"{sv['shard_bytes'] / 2**30:.2f} GiB on rank 0; MoE calls by path "
+        f"{sv['paths']}")
+    log(f"[multidevice] placed prefill [{MD_BATCH}, {MD_LEN}] "
+        f"{a['prefill_ms']:.1f} / {b['prefill_ms']:.1f} ms, {MD_NEW} greedy "
+        f"steps at {a['decode_ms']:.1f} / {b['decode_ms']:.1f} ms per step "
+        f"(host clock), the rerun equal bit for bit; against the same "
+        f"weights unplaced on each data shard's prompts "
+        f"({sv['unplaced_s']:.1f} s): logits max relative error "
+        f"{sv['rel']:.3g} (tolerance {MD_LOGITS_REL}), the same tokens; "
+        f"peak {sv['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    log(f"[multidevice] {tr['cfg'].name} cut to {MD_TRAIN_LAYERS} layers, "
+        f"{MD_TRAIN_STEPS} placed make_train_step steps of {MD_TRAIN_BATCH} "
+        f"x {MD_TRAIN_SEQ} at lr {MD_LR}: first loss {tr['loss']:.6f}, "
+        f"against unplaced: loss {tr['loss_rel']:.3g}, worst gradient leaf "
+        f"{tr['grad_rel']:.3g}, parameters after step {MD_TRAIN_STEPS} "
+        f"{tr['param_rel']:.3g} (relative Frobenius; the worst leaf, "
+        f"{tr['worst'][0]}, {tr['worst'][1]:.3g} with its gradient at "
+        f"{tr['worst'][2]:.3g}); step ms {[round(x, 1) for x in tr['ms']]} "
+        f"({card})")
+    log(f"[multidevice] {ep['cfg'].name} MoE layers at full width (d="
+        f"{ep['cfg'].d_model}, {ep['cfg'].padded_experts} experts, top-"
+        f"{ep['cfg'].num_experts_per_tok}) on (data 1, model 4): "
+        f"expert-parallel == one-device path bit for bit on "
+        f"{EP_TOKENS[0]} x {EP_TOKENS[1]} tokens, {PHI_LAYERS} layers; ms "
+        f"{[round(x, 1) for x in ep['ms']]} (one device "
+        f"{[round(x, 1) for x in ep['dense_ms']]}); peak "
+        f"{ep['peak_bytes'] / 2**30:.2f} GiB ({card})")
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: the roofline of three measured steps, and one dry-run cell
+# --------------------------------------------------------------------------- #
+
+
+def run_roofline(torch, train_ms: float, decode_ms: float,
+                 placed_prefill_ms: float, lm_cfg=None, md_cfg=None
+                 ) -> dict:
+    """The op walk on ``meta`` tensors over phase 10(a)'s step, phase 8's
+    decode step and phase 12(a)'s placed prefill (one rank's program), each
+    with its roofline on the H100's data-sheet constants beside the time
+    its phase measured; then ``launch.dryrun``'s gemma2-2b x train_4k cell
+    on the production mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import collectives
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline.op_walk import walk
+    from repro_torch.train.step import make_train_step
+
+    def meta(shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    t_start = time.perf_counter()
+    out = {}
+    cfg = lm_cfg or get_config(TRAIN_ARCH)
+    model = tf.init_params(cfg, None)
+    t0 = time.perf_counter()
+    tally = walk(make_train_step(cfg, AdamWConfig(lr=TRAIN_LR)), model,
+                 adamw_init(model), {"tokens": meta((TRAIN_BATCH, TRAIN_SEQ)),
+                                     "labels": meta((TRAIN_BATCH,
+                                                     TRAIN_SEQ))})
+    out["train"] = (tally, analysis.analyze(tally, 1), train_ms,
+                    time.perf_counter() - t0)
+    cfg = lm_cfg or get_config(LM_ARCH)
+    model = tf.init_params(cfg, None)
+    caches = tf.init_caches(cfg, GEN_PROMPTS, LM_S_CACHE, "meta")
+    t0 = time.perf_counter()
+    tally = walk(tf.decode_step, model, caches, meta((GEN_PROMPTS, 1)),
+                 meta((GEN_PROMPTS, 1)), cfg)
+    out["decode"] = (tally, analysis.analyze(tally, 1), decode_ms,
+                     time.perf_counter() - t0)
+    cfg = md_cfg or dataclasses.replace(get_config(MD_ARCH), dtype="float32")
+    mesh = md_mesh("meta")
+    placed = specs.params_struct(cfg, mesh)
+    batch = specs.batch_struct(cfg, mesh, ShapeConfig(
+        "phase12", MD_LEN, MD_BATCH, "prefill"), labels=False)
+    t0 = time.perf_counter()
+    tally = walk(lambda: collectives.solo(mesh, lambda: tf.prefill(
+        placed.view(0), batch, cfg, MD_S_CACHE)))
+    out["placed_prefill"] = (tally, analysis.analyze(tally, mesh.size),
+                             placed_prefill_ms, time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["dryrun"] = dryrun.run_cell(TRAIN_ARCH.replace("-", "_"),
+                                        DRY_SHAPE, False, pathlib.Path(tmp),
+                                        verbose=False)
+    if out["dryrun"]["status"] != "ok":
+        raise AssertionError(f"dry run: {out['dryrun']}")
+    out["s"] = time.perf_counter() - t_start
+    return out
+
+
+def report_roofline(r) -> None:
+    card = CARD[0]
+    names = {"train": f"phase 10(a)'s step ({TRAIN_ARCH}, {TRAIN_BATCH} x "
+                      f"{TRAIN_SEQ}, remat block)",
+             "decode": f"phase 8's decode step ({LM_ARCH}, {GEN_PROMPTS} x "
+                       f"1 against {LM_S_CACHE} cache slots)",
+             "placed_prefill": f"phase 12(a)'s placed prefill ({MD_ARCH} "
+                               f"f32, [{MD_BATCH}, {MD_LEN}], one rank of "
+                               f"(data {MESH_SHAPE[0]}, model "
+                               f"{MESH_SHAPE[1]}))"}
+    for key, (t, rf, ms, walk_s) in ((k, r[k]) for k in names):
+        bound_ms = rf.bound_s * 1e3
+        log(f"[roofline] {names[key]}: {t.flops:.4g} operations "
+            f"({t.dot_flops:.4g} in products), {t.bytes:.4g} bytes "
+            f"op by op, {t.bytes_min:.4g} at fused boundaries, "
+            f"{t.wire_bytes:.4g} wire bytes, {t.ops} ops walked in "
+            f"{walk_s:.1f} s; bound {bound_ms:.3f} ms by {rf.dominant} "
+            f"(compute {rf.compute_s * 1e3:.3f}, memory "
+            f"{rf.memory_s * 1e3:.3f}, collective "
+            f"{rf.collective_s * 1e3:.3f} ms at the H100 SXM data sheet's "
+            f"989 TFLOP/s bf16, 3.35 TB/s, 450 GB/s); measured {ms:.3f} ms "
+            f"({card}): {bound_ms / ms:.2%} of it")
+    t = r["train"][0]
+    log(f"[roofline] phase 10(a)'s step: {t.flops:.4g} operations against "
+        f"PERF.md §2's hand estimate of {HAND_OPS_TRAIN:.2g} "
+        f"({t.flops / HAND_OPS_TRAIN - 1:+.1%})")
+    d = r["dryrun"]
+    rl, mem = d["roofline"], d["memory_per_device"]
+    log(f"[roofline] dryrun {d['arch']} x {d['shape']} on the single "
+        f"production mesh ({d['chips']} devices): per device "
+        f"{mem['total'] / 2**30:.3f} GiB placed (parameters "
+        f"{mem['params'] / 2**20:.1f} MiB, AdamW {mem['opt'] / 2**20:.1f} "
+        f"MiB, batch {mem['batch'] / 2**20:.2f} MiB), {rl['flops']:.4g} "
+        f"operations, {rl['wire_bytes_per_device']:.4g} wire bytes; "
+        f"compute {rl['compute_s']:.4g} s, memory {rl['memory_s']:.4g} s, "
+        f"collective {rl['collective_s']:.4g} s: {rl['dominant']}")
+    log(f"[roofline] phase 13 in {r['s']:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    # 3072 by default keeps the whole run inside its time limit with
-    # phases 6-8; --docs 4096 and 8192 reproduce the hashes PERF.md records
-    # for them
-    ap.add_argument("--docs", type=int, default=3072,
+    # 2048 by default (phase 6's reference, the least) keeps the whole run
+    # inside its time limit with phases 11-13; --docs 3072, 4096 and 8192
+    # reproduce the hashes PERF.md records for them
+    ap.add_argument("--docs", type=int, default=2048,
                     help="documents phase 3 ingests (a multiple of 512, at "
                     "least 2048)")
     ap.add_argument("--seed", type=int, default=0)
@@ -3535,6 +4160,32 @@ def main() -> int:
     report_train(train)
     log(f"[train] phase 10 in {train['s']:.1f} s ({CARD[0]})")
 
+    from repro_torch import kernels
+    new_counts = {}
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()  # ---- phase 11's main path starts ----
+    for arch in EXT_ARCHS:
+        report_external(run_external(torch, dev, args.seed, arch))
+    new_counts["external"] = kernels.launch_counts()
+    log(f"[external] phase 11 in {time.perf_counter() - t0:.1f} s "
+        f"({CARD[0]})")
+
+    kernels.reset_launch_counts()  # ---- phase 12's main path starts ----
+    md = run_multidevice(torch, dev, args.seed)
+    new_counts["multidevice"] = kernels.launch_counts()
+    report_multidevice(md)
+    log(f"[multidevice] phase 12 in {md['s']:.1f} s ({CARD[0]})")
+
+    kernels.reset_launch_counts()  # ---- phase 13's main path starts ----
+    tw = train["twice"]["runs"]
+    roof = run_roofline(
+        torch, statistics.median(tw[0]["ms"] + tw[1]["ms"]),
+        lm["steps"]["decode_ms"], md["serve"]["runs"][1]["prefill_ms"])
+    new_counts["roofline"] = kernels.launch_counts()
+    report_roofline(roof)
+    log(f"[phases 11-13] kernel launches (none is on their path): "
+        f"{new_counts}")
+
     kern = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/kernels/csrc/{name}.cu",
                  replaces=REPLACES[name], launches=counts[name],
@@ -3545,6 +4196,9 @@ def main() -> int:
                  launches_lm_families={arch: f["counts"][name]
                                        for arch, f in families.items()},
                  launches_train=train["coord"]["counts"][name],
+                 launches_external=new_counts["external"][name],
+                 launches_multidevice=new_counts["multidevice"][name],
+                 launches_roofline=new_counts["roofline"][name],
                  max_abs_err=r["max_abs_err"], mismatches=r["mismatches"],
                  ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

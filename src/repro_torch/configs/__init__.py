@@ -1,16 +1,15 @@
 """Architecture registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-The reference's ids and canonical names. Each ported module defines CONFIG
-(the published dimensions) and REDUCED (same family, tiny dimensions) for
-CPU tests, copied from the reference. This package runs the token-input
-families (dense, moe, ssm, hybrid); the two archs that take external
-embeddings (vlm, audio) are named here so that asking for one says where
-its port stands instead of failing on a missing module.
+The reference's ids and canonical names. Each module defines CONFIG (the
+published dimensions), REDUCED (same family, tiny dimensions) for CPU
+tests and ``LONG_CONTEXT_OK`` (a sub-quadratic long-context path: ssm,
+hybrid, swa or local_global; the long_500k shape is skipped elsewhere),
+copied from the reference.
 """
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
@@ -41,16 +40,6 @@ CANONICAL = {
     "zamba2-2.7b": "zamba2_2_7b",
 }
 
-# arch -> (family, ROADMAP.md Queue 1 item that ports it)
-UNPORTED = {
-    "qwen2_vl_7b": ("vlm", "15d"),
-    "musicgen_large": ("audio", "15d"),
-}
-
-
-class UnportedArchError(NotImplementedError):
-    """The arch's family has no port yet."""
-
 
 def _norm(arch: str) -> str:
     return CANONICAL.get(arch, arch.replace("-", "_").replace(".", "_"))
@@ -58,11 +47,6 @@ def _norm(arch: str) -> str:
 
 def _module(arch: str):
     name = _norm(arch)
-    if name in UNPORTED:
-        family, item = UNPORTED[name]
-        raise UnportedArchError(
-            f"{arch}: the {family} family is not ported yet (ROADMAP.md "
-            f"Queue 1 item {item})")
     if name not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
@@ -74,3 +58,11 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced_config(arch: str) -> ModelConfig:
     return _module(arch).REDUCED
+
+
+def long_context_ok(arch: str) -> bool:
+    return _module(arch).LONG_CONTEXT_OK
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

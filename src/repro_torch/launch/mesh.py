@@ -4,9 +4,9 @@ A ``Mesh`` is axis names, a shape and the devices it lays over them, row
 major. ``make_host_mesh`` lays one over the devices the caller names (the
 card's devices by default, never the CPU on its own);
 ``make_production_mesh`` is the reference's production shape with no
-devices, which the sharding rules read (they read only ``axis_names`` and
-``shape``). Placing tensors over a mesh across several cards is not done
-here.
+devices, which the sharding rules and the dry run read (they read only
+``axis_names`` and ``shape``). ``models.placement`` places tensors over a
+mesh's devices.
 """
 from __future__ import annotations
 

@@ -43,8 +43,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import (UnportedArchError, get_config,
-                                 get_reduced_config)
+from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.core import hnsw
 from repro_torch.core.state import resolve_device
 from repro_torch.models import transformer as tf
@@ -124,11 +123,11 @@ def _args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = _args(argv)
-    try:
-        cfg = get_reduced_config(args.arch) if args.reduced \
-            else get_config(args.arch)
-    except UnportedArchError as e:
-        raise SystemExit(str(e)) from None
+    cfg = get_reduced_config(args.arch) if args.reduced \
+        else get_config(args.arch)
+    if cfg.external_embeddings:
+        raise SystemExit(f"{cfg.name} takes stub embeddings; pick a token "
+                         "arch")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

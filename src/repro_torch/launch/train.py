@@ -7,9 +7,13 @@ Wires together: config → parameters and AdamW state on ``--device``
 (``cuda`` by default; nothing falls back to the CPU) → the deterministic
 pipeline → ``make_train_step`` → the fault-tolerant ``Coordinator``
 (checkpoint / restart, the train state in the reference's layout, so a
-checkpoint of either package restores in the other) → the metrics log. A
-second call on the same ``--checkpoint-dir`` resumes from its last
-checkpoint. Archs that take external embeddings are refused. The weights
+checkpoint of either package restores in the other) → the metrics log. On
+``cuda`` the mesh lays over every CUDA device, as the reference's
+``make_host_mesh()`` does; with more than one, the model and AdamW's state
+are placed over it (``models.placement``) and the state is gathered back
+after each step. One card is a (data 1, model 1) mesh and runs the model
+unplaced. A second call on the same ``--checkpoint-dir`` resumes from its
+last checkpoint. Archs that take external embeddings are refused. The weights
 are random, from ``--seed`` on the device (``torch.Generator(device)``).
 """
 from __future__ import annotations
@@ -22,11 +26,11 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs import (UnportedArchError, get_config,
-                                 get_reduced_config)
+from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.core.state import resolve_device
 from repro_torch.data.pipeline import DataConfig, DeterministicPipeline
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.models import placement
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
@@ -56,14 +60,12 @@ def _args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = _args(argv)
-    try:
-        cfg = get_reduced_config(args.arch) if args.reduced \
-            else get_config(args.arch)
-    except UnportedArchError as e:
-        raise SystemExit(str(e)) from None
+    cfg = get_reduced_config(args.arch) if args.reduced \
+        else get_config(args.arch)
     if cfg.external_embeddings:
-        raise SystemExit(f"{cfg.name} takes stub embeddings; train a token "
-                         "arch instead")
+        raise SystemExit(
+            f"{cfg.name} takes stub embeddings; use examples/train_lm.py "
+            "with a token arch instead")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -72,12 +74,14 @@ def main(argv=None) -> None:
         raise SystemExit("no CUDA device is available; pass --device cpu "
                          "to train on the CPU")
 
-    mesh = make_host_mesh(devices=[device])
+    mesh = make_host_mesh() if device.type == "cuda" \
+        else make_host_mesh(devices=[device])
     print(f"mesh: {mesh.shape} devices={mesh.size} ({device})")
     coord = make_coordinator(
         cfg, device, steps=args.steps, batch=args.batch, seq=args.seq,
         lr=args.lr, seed=args.seed, checkpoint_dir=args.checkpoint_dir,
-        checkpoint_every=args.checkpoint_every, log_every=args.log_every)
+        checkpoint_every=args.checkpoint_every, log_every=args.log_every,
+        mesh=mesh)
     t0 = time.time()
     coord.train()
     dt = time.time() - t0
@@ -89,15 +93,17 @@ def main(argv=None) -> None:
 def make_coordinator(cfg: ModelConfig, device, *, steps: int, batch: int,
                      seq: int, lr: float, seed: int, checkpoint_dir: str,
                      checkpoint_every: int, log_every: Optional[int] = None,
-                     failure_injector: Optional[Callable] = None
-                     ) -> Coordinator:
+                     failure_injector: Optional[Callable] = None,
+                     mesh: Optional[Mesh] = None) -> Coordinator:
     """The launcher's training run, ready to ``train()``: the pipeline's
     batches (``seed``), ``make_train_step`` under AdamW (warmup a tenth of
     ``steps``, cosine to ``steps``), the train state in the reference's
     layout (``train.step.train_state``) from ``seed`` on ``device``, and
     checkpoints every ``checkpoint_every`` steps in ``checkpoint_dir``.
     ``log_every`` prints the reference's step lines; ``failure_injector``
-    is the ``Coordinator``'s."""
+    is the ``Coordinator``'s. Over a ``mesh`` of more than one device each
+    step runs placed (``models.placement``) and writes its parameters, m
+    and v back into the train state."""
     optc = AdamWConfig(lr=lr, warmup_steps=max(steps // 10, 1),
                        total_steps=steps)
     data = DeterministicPipeline(DataConfig(
@@ -112,11 +118,22 @@ def make_coordinator(cfg: ModelConfig, device, *, steps: int, batch: int,
 
     bound = {}  # the state the model is bound to, and the model
 
+    placed = mesh is not None and mesh.size > 1
+
     def train_one(state, batch):
         if bound.get("state") is not state:
             bound.update(state=state, model=bind_state(state, cfg))
+            if placed:
+                params, opt = bound["model"]
+                p = placement.place(params, cfg, mesh)
+                bound.update(placed=(p, placement.place_opt(opt, p)))
         params, opt = bound["model"]
-        _, _, metrics = step_fn(params, opt, batch)
+        if not placed:
+            _, _, metrics = step_fn(params, opt, batch)
+            return state, metrics
+        p, popt = bound["placed"]
+        _, _, metrics = step_fn(p, popt, batch)
+        placement.gather_state(p, popt, params, opt)
         return state, metrics
 
     return Coordinator(

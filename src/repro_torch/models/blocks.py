@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.models import collectives, pspec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.initializers import device_of
 from repro_torch.models.layers import attention as attn_lib
@@ -48,15 +49,18 @@ class DecoderBlock(nn.Module):
 
 def decoder_block(params: DecoderBlock, h: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig, *, local: bool,
-                  mode: str, cache_slice: Optional[attn_lib.Cache] = None
+                  mode: str, cache_slice: Optional[attn_lib.Cache] = None,
+                  angles: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Optional[attn_lib.Cache],
                              torch.Tensor]:
     """Returns (h, the layer's cache after this call, the MoE balance loss:
-    float32 zero outside the moe family)."""
+    float32 zero outside the moe family). ``angles`` are M-RoPE's, or None
+    for text RoPE. Under a mesh whose ``model`` axis divides ``d_ff`` the
+    dense MLP is column- then row-parallel: one sum over ``model``."""
     a_in = rmsnorm(params.ln_attn, h, cfg.rms_eps)
     a_out, new_cache = attn_lib.attention(
         params.attn, a_in, positions, cfg, local=local, mode=mode,
-        cache_slice=cache_slice)
+        cache_slice=cache_slice, angles=angles)
     if cfg.norm_style == "pre_post":
         a_out = rmsnorm(params.ln_attn_post, a_out, cfg.rms_eps)
     h = h + a_out
@@ -66,6 +70,8 @@ def decoder_block(params: DecoderBlock, h: torch.Tensor,
         f_out, aux = moe_lib.moe_ffn(params.moe, f_in, cfg)
     else:
         f_out = mlp(params.mlp, f_in, cfg.activation)
+        if pspec.model_divides(cfg.d_ff):
+            f_out = collectives.psum(f_out, "model")
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.norm_style == "pre_post":
         f_out = rmsnorm(params.ln_ffn_post, f_out, cfg.rms_eps)

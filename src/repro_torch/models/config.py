@@ -2,9 +2,8 @@
 
 One dataclass for every family, field for field and property for property
 with the reference, so a configuration reads the same in both packages.
-``compute_dtype`` and ``params_dtype`` return torch dtypes. This package
-runs the dense, moe, ssm and hybrid families; the vlm and audio fields are
-kept so the schema and ``param_count`` stay whole.
+``compute_dtype`` and ``params_dtype`` return torch dtypes. ``ShapeConfig``
+and ``SHAPES`` are the reference's dry-run cells.
 """
 from __future__ import annotations
 
@@ -169,3 +168,25 @@ class ModelConfig:
         E, k = self.num_experts, self.num_experts_per_tok
         Fe, D, L = self.expert_d_ff, self.d_model, self.num_layers
         return self.param_count() - L * (E - k) * (2 * D * Fe + Fe * D)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One dry-run cell: an input shape and the step it runs."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}

@@ -6,8 +6,15 @@ logit softcapping and qkv bias. The flash paths are the reference's
 online softmax in plain torch ops: the reference vmaps over query chunks
 and scans over KV chunks; here the query chunks are one batch axis and the
 KV chunks a Python loop, with the same per-block arithmetic. The softcap
-rules out ``scaled_dot_product_attention``. On one device there is no
-sharding constraint to place.
+rules out ``scaled_dot_product_attention``.
+
+M-RoPE (qwen2-vl) comes in as precomputed ``angles``; decode always uses
+text RoPE. Under a mesh (``models.pspec``) a rank whose heads divide the
+``model`` axis holds its slice of the heads (``models.placement`` gathers
+``wq``/``wk``/``wv``/``wo`` so), computes attention over them, and its
+partial output projection is summed over ``model``: the reference's
+head-sharded tensor parallelism. Head counts are read from the tensors,
+so the same code serves both.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.models import collectives, pspec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.initializers import dense_init, device_of
 from repro_torch.models.layers import rope as rope_lib
@@ -221,8 +229,11 @@ def _flash_attend_zigzag(q, k, v, q_pos, k_pos, cfg: ModelConfig):
 
 def init_cache(batch: int, s_cache: int, cfg: ModelConfig, device) -> Cache:
     """One layer's cache: k, v [B, S, KV, Dh] in the compute dtype, and the
-    absolute position held in each slot (-1 = empty)."""
+    absolute position held in each slot (-1 = empty). Under head tensor
+    parallelism a rank holds its KV / model heads."""
     KV, Dh = cfg.num_kv_heads, cfg.head_dim_
+    if pspec.heads_tp(cfg):
+        KV //= pspec.current_mesh().shape["model"]
     dt = cfg.compute_dtype
     return {
         "k": torch.zeros((batch, s_cache, KV, Dh), dtype=dt, device=device),
@@ -249,7 +260,7 @@ def _decode_attend(params: Attention, x, positions, cfg: ModelConfig,
     v_cache[bidx, write_idx] = v_new[:, 0]
     pos_cache[bidx, write_idx] = positions[:, 0].to(torch.int32)
 
-    KV, Dh, H = cfg.num_kv_heads, cfg.head_dim_, cfg.num_heads
+    H, KV, Dh = q.shape[2], k_new.shape[2], q.shape[3]  # this rank's heads
     G = H // KV
     qg = q.reshape(B, KV, G, Dh)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).to(torch.float32)
@@ -261,7 +272,15 @@ def _decode_attend(params: Attention, x, positions, cfg: ModelConfig,
     w = torch.softmax(s, dim=-1).to(x.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", w, v_cache).reshape(B, 1, H, Dh)
     o = torch.einsum("blhd,hdo->blo", out, params.wo.to(x.dtype))
-    return o, cache_slice
+    return _heads_sum(o, cfg), cache_slice
+
+
+def _heads_sum(out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Under head tensor parallelism each rank's output projection covers
+    its heads only: the one sum over ``model`` (the identity otherwise)."""
+    if pspec.heads_tp(cfg):
+        return collectives.psum(out, "model")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -271,17 +290,22 @@ def _decode_attend(params: Attention, x, positions, cfg: ModelConfig,
 
 def attention(params: Attention, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, *, local: bool, mode: str,
-              cache_slice: Optional[Cache] = None
+              cache_slice: Optional[Cache] = None,
+              angles: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x [B, L, D], positions [B, L] int absolute positions; ``mode`` is
-    train | prefill | decode. Prefill writes the cache in place, keeping
-    the last S positions at slot ``pos % S``; decode writes one slot."""
+    train | prefill | decode; ``angles`` [B, L, head_dim/2] precomputed
+    (M-RoPE) replace the text RoPE of ``positions`` outside decode.
+    Prefill writes the cache in place, keeping the last S positions at
+    slot ``pos % S``; decode writes one slot."""
     window = cfg.sliding_window if local else None
 
     if mode == "decode":
         return _decode_attend(params, x, positions, cfg, cache_slice, window)
 
-    angles = rope_lib.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+    if angles is None:
+        angles = rope_lib.rope_angles(positions, cfg.head_dim_,
+                                      cfg.rope_theta)
     q, k, v = _project_qkv(params, x, cfg, angles)
 
     L = x.shape[1]
@@ -290,14 +314,19 @@ def attention(params: Attention, x: torch.Tensor, positions: torch.Tensor,
     qc = min(cfg.flash_q_chunk, L)
     zigzag_ok = (
         use_flash and window is None and cfg.attn_impl != "flash"
-        and L % qc == 0 and (L // qc) % 2 == 0 and L // qc >= 2)
+        and L % qc == 0 and (L // qc) % 2 == 0 and L // qc >= 2
+        # as the reference: zigzag only where attention is head-TP or
+        # unsharded
+        and (pspec.current_mesh() is None
+             or pspec.model_divides(cfg.num_heads)))
     if zigzag_ok:
         ctx = _flash_attend_zigzag(q, k, v, positions, positions, cfg)
     elif use_flash:
         ctx = _flash_attend(q, k, v, positions, positions, cfg, window)
     else:
         ctx = _naive_attend(q, k, v, positions, positions, cfg, window)
-    out = torch.einsum("blhd,hdo->blo", ctx, params.wo.to(x.dtype))
+    out = _heads_sum(torch.einsum("blhd,hdo->blo", ctx,
+                                  params.wo.to(x.dtype)), cfg)
 
     if mode == "prefill":
         if cache_slice is None:

@@ -14,17 +14,27 @@ scatter-add, so no atomics and the same bits on every run.
 
 A document's output depends on its batch: the capacity is a function of
 the batch's token count and overflow is dropped, as in the reference.
-The reference's expert-parallel ``shard_map`` path runs only under a
-device mesh and is not ported.
+
+Under a mesh (``models.placement``), where the reference takes its
+expert-parallel ``shard_map`` (``pspec.moe_ep``), each rank holds the
+router whole and ``E_pad / n_model`` experts, routes its data shard's
+tokens exactly as every other ``model`` rank does, keeps the pairs bound
+for its experts (capacity per data shard, as the reference's), and the
+combine is one float32 sum over ``model`` in rank order; the balance loss
+is averaged over the data-parallel axes. With top-2 routing each token's
+output is the same sum of the same two terms as the one-device path's,
+bit for bit.
 """
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import collectives, pspec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.initializers import dense_init
 
@@ -45,6 +55,10 @@ class MoE(nn.Module):
                                             fan_in=D))
         self.w_down = nn.Parameter(dense_init(generator, (E, Fe, D), pd,
                                               fan_in=Fe))
+
+
+PATHS = {"dense": 0, "expert_parallel": 0}  # moe_ffn calls by path taken
+_PATHS_LOCK = threading.Lock()
 
 
 def capacity_of(tokens: int, cfg: ModelConfig) -> int:
@@ -85,15 +99,30 @@ def _expert_mlp(params: MoE, buf: torch.Tensor, cfg: ModelConfig
 
 def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, L, D] → (y [B, L, D], aux): the reference's ``_moe_dense``.
-    aux is the Switch-style load-balance loss, mean(f_e · p_e) · E_pad,
-    in float32."""
+    """x [B, L, D] → (y [B, L, D], aux): the reference's ``_moe_dense``,
+    or under a mesh where ``pspec.moe_ep`` holds its expert-parallel
+    ``_moe_shardmap`` (this rank's data shard and experts). aux is the
+    Switch-style load-balance loss, mean(f_e · p_e) · E_pad, in
+    float32."""
+    ep = pspec.moe_ep(cfg)
+    with _PATHS_LOCK:
+        PATHS["expert_parallel" if ep else "dense"] += 1
+    return _moe_dispatch(params, x, cfg, expert_parallel=ep)
+
+
+def _moe_dispatch(params: MoE, x: torch.Tensor, cfg: ModelConfig, *,
+                  expert_parallel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     B, L, D = x.shape
     T = B * L
     E, K = cfg.padded_experts, cfg.num_experts_per_tok
     C = capacity_of(T, cfg)
     dev = x.device
     xt = x.reshape(T, D)
+    # this rank's experts: [first, first + E_loc) (all E on one device)
+    E_loc, first = E, 0
+    if expert_parallel:
+        E_loc = params.w_gate.shape[0]
+        first = collectives.axis_index("model") * E_loc
 
     probs, top_p, top_e = _route(params, xt, cfg)
 
@@ -106,18 +135,22 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * K, device=dev) - starts[sorted_e]
     keep = rank < C
-    # overflow pairs all go to one extra row that is thrown away; every
-    # kept pair owns its slot, so the writes that survive are unique
-    dest = torch.where(keep, sorted_e * C + rank, E * C)
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
+    if expert_parallel:
+        # identical routing on every model rank; each keeps its experts'
+        keep = keep & (sorted_e // E_loc == first // E_loc)
+    # overflow pairs (and, expert-parallel, other ranks' pairs) all go to
+    # one extra row that is thrown away; every kept pair owns its slot,
+    # so the writes that survive are unique
+    dest = torch.where(keep, (sorted_e - first) * C + rank, E_loc * C)
+    buf = torch.zeros((E_loc * C + 1, D), dtype=x.dtype, device=dev)
     buf[dest] = xt[sorted_pair // K]
-    out_flat = _expert_mlp(params, buf[:E * C].reshape(E, C, D), cfg
-                           ).reshape(E * C, D)
+    out_flat = _expert_mlp(params, buf[:E_loc * C].reshape(E_loc, C, D), cfg
+                           ).reshape(E_loc * C, D)
 
     # ---- combine: each pair's expert output, weighted, summed over K --- #
     pair_dest = torch.empty(T * K, dtype=dest.dtype, device=dev)
     pair_dest[sorted_pair] = torch.where(keep, dest, -1)
-    gathered = out_flat[torch.clamp(pair_dest, 0, E * C - 1)]
+    gathered = out_flat[torch.clamp(pair_dest, 0, E_loc * C - 1)]
     w = torch.where(pair_dest >= 0, top_p.reshape(T * K), 0.0).to(x.dtype)
     y = (gathered * w[:, None]).reshape(T, K, D).sum(dim=1)
 
@@ -125,4 +158,8 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig
     frac_tokens = counts.to(torch.float32) / float(T * K)
     frac_probs = probs.mean(dim=0)
     aux = torch.sum(frac_tokens * frac_probs) * E
+    if expert_parallel:
+        # one float32 sum over the expert shards; aux over the dp shards
+        y = collectives.psum(y.to(torch.float32), "model").to(x.dtype)
+        aux = collectives.pmean(aux, pspec.dp_axes(pspec.current_mesh()))
     return y.reshape(B, L, D), aux

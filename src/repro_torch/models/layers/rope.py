@@ -1,6 +1,8 @@
-"""Rotary position embeddings (rotate-half), tables in float32 computed on
-the fly from integer positions. M-RoPE comes with the VLM family."""
+"""Rotary position embeddings: standard RoPE (rotate-half) and Qwen2-VL's
+M-RoPE, tables in float32 computed on the fly from integer positions."""
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -29,3 +31,27 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     sin = torch.sin(angles)[..., None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
+
+
+def mrope_angles(positions_3d: torch.Tensor, head_dim: int, theta: float,
+                 sections: Sequence[int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE. positions_3d [3, B, L] (temporal,
+    height, width) int → angles [B, L, head_dim/2] f32: the head_dim/2
+    frequency slots are split into ``sections`` (e.g. 16/24/24) and each
+    section takes its angle from its own positional stream. With three
+    equal streams (text) it is standard RoPE exactly."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {head_dim // 2}")
+    freqs = _freqs(head_dim, theta, positions_3d.device)
+    ang = positions_3d.to(torch.float32)[..., None] * freqs  # [3, B, L, d2]
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(ang[i, ..., start:start + sec])
+        start += sec
+    return torch.cat(parts, dim=-1)
+
+
+def text_positions_3d(positions: torch.Tensor) -> torch.Tensor:
+    """Lift text positions [B, L] → [3, B, L] (all streams equal)."""
+    return positions[None].expand((3,) + tuple(positions.shape))

@@ -14,8 +14,8 @@ in the reference's layout (``models.convert``): stacked leaves carry
 leading layer axes, which replicate. The ``pod`` axis is pure DP:
 parameters are replicated across pods (the cross-pod traffic is one
 gradient all-reduce per step, ``optim.compress``). The rules read only a
-mesh's ``axis_names`` and ``shape`` (``launch.mesh.Mesh``). Placing
-tensors by these specs over several cards is not done here.
+mesh's ``axis_names`` and ``shape`` (``launch.mesh.Mesh``);
+``models.placement`` places tensors by them over a mesh's devices.
 """
 from __future__ import annotations
 

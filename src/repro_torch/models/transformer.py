@@ -5,7 +5,8 @@ The reference scans stacked layer params; here each stack is an
 ``nn.ModuleList`` in layer order and the scan is a Python loop.
 ``models.convert`` carries the reference's tree across. Stacks by family:
 
-  dense / moe : one ``DecoderBlock`` per layer. Layer i is local (sliding
+  dense / vlm / audio / moe :
+                one ``DecoderBlock`` per layer. Layer i is local (sliding
                 window) when ``cfg.layer_is_local(i)``: every layer under
                 swa, the even layers (the reference's ``a`` of pair i/2)
                 under local_global.
@@ -15,10 +16,23 @@ The reference scans stacked layer params; here each stack is an
                 shared ``DecoderBlock`` g % num_shared_blocks (full
                 attention) before its mamba layers.
 
-The vlm and audio families take external embeddings and are not ported.
-``loss_fn`` is the training objective; under ``remat="block"`` each of
-the reference's scan units is recomputed in the backward pass
-(``_maybe_remat``).
+The vlm and audio families take external embeddings (``batch["embeds"]``
+[B, L, D], cast to the compute dtype, neither gathered nor scaled); they
+keep an ``embed`` table and an untied ``lm_head``, as the reference's
+init does. Under ``rope_type="mrope"`` (qwen2-vl) the angles come from
+``batch["positions_3d"]`` [3, B, L] (text positions when absent), and
+decode uses text RoPE, as the reference does. ``loss_fn`` is the training
+objective; under ``remat="block"`` each of the reference's scan units is
+recomputed in the backward pass (``_maybe_remat``).
+
+Under a mesh (``models.placement`` runs one thread per rank, each with
+``models.pspec``'s ambient rank) the same code runs per rank on its shard
+of the batch: the embedding table and the head are vocab-parallel over
+``model`` (a masked lookup summed over ``model``; logits gathered over
+``model``), attention and the MLP are head- and column/row-parallel, and
+the MoE is expert-parallel (``layers.moe``). Remat is off under a
+multi-threaded mesh (the recompute would repeat collectives after the
+ranks have finished).
 
 Parameters are float32 masters cast to the compute dtype at every use;
 norms, RoPE, the softmax, the MoE router, the SSD scan and the logits
@@ -37,9 +51,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks as blk
+from repro_torch.models import collectives, pspec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.initializers import device_of, embed_init
 from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers import rope as rope_lib
 from repro_torch.models.layers import ssm as ssm_lib
 from repro_torch.models.layers.norms import RMSNorm, rmsnorm
 
@@ -54,10 +70,9 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator]):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family takes external "
-                "embeddings and is not ported (ROADMAP.md Queue 1 item 15d)")
+        if cfg.family not in ("dense", "vlm", "audio", "moe", "ssm",
+                              "hybrid"):
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         if cfg.attn_pattern == "local_global" and cfg.num_layers % 2:
             raise ValueError("local_global needs an even layer count")
         pd = cfg.params_dtype
@@ -134,14 +149,18 @@ def _maybe_remat(fn, cfg: ModelConfig, mode: str):
     autograd recording, ``fn``'s activations are recomputed in the
     backward pass instead of kept (``torch.utils.checkpoint``, the
     reference's ``jax.checkpoint``). The values and gradients are the
-    same bits either way."""
-    if cfg.remat == "block" and mode == "train" and torch.is_grad_enabled():
+    same bits either way. Off under a mesh whose collectives cannot run
+    again in the backward pass (the threads of ``collectives.spmd``)."""
+    rank = pspec.current()
+    if cfg.remat == "block" and mode == "train" and torch.is_grad_enabled() \
+            and (rank is None or rank.rendezvous.replayable):
         return functools.partial(checkpoint, fn, use_reentrant=False)
     return fn
 
 
 def _run_stack(params: Transformer, h: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig, mode: str, caches: Optional[Caches]
+               cfg: ModelConfig, mode: str, caches: Optional[Caches],
+               angles: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
     """Every layer in order; returns (h, caches, the summed MoE balance
     loss: float32 zero outside the moe family). The units that
@@ -172,7 +191,8 @@ def _run_stack(params: Transformer, h: torch.Tensor, positions: torch.Tensor,
         def group(h, g):
             h, nc_shared, _ = blk.decoder_block(
                 params.shared[g % cfg.num_shared_blocks], h, positions, cfg,
-                local=False, mode=mode, cache_slice=cache(c_shared, g))
+                local=False, mode=mode, cache_slice=cache(c_shared, g),
+                angles=angles)
             nc_mamba = []
             for j, layer in enumerate(params.blocks[g]):
                 h, nc = blk.mamba_layer(layer, h, cfg, mode=mode,
@@ -197,7 +217,7 @@ def _run_stack(params: Transformer, h: torch.Tensor, positions: torch.Tensor,
             h, nc, a = blk.decoder_block(
                 params.blocks[i], h, positions, cfg,
                 local=cfg.layer_is_local(i), mode=mode,
-                cache_slice=cache(caches, i))
+                cache_slice=cache(caches, i), angles=angles)
             new.append(nc)
             auxes.append(a)
         return h, new, auxes
@@ -220,12 +240,26 @@ def _run_stack(params: Transformer, h: torch.Tensor, positions: torch.Tensor,
 
 def _embed(params: Transformer, batch: Dict[str, torch.Tensor],
            cfg: ModelConfig) -> torch.Tensor:
-    h = params.embed[batch["tokens"].long()].to(cfg.compute_dtype)
+    if cfg.external_embeddings:
+        return batch["embeds"].to(cfg.compute_dtype)
+    ids = batch["tokens"].long()
+    table = params.embed
+    if pspec.model_divides(cfg.padded_vocab):
+        # vocab-parallel lookup: this rank's rows, zeros for the others'
+        # tokens, summed over model (one nonzero term: exact)
+        local = ids - collectives.axis_index("model") * table.shape[0]
+        mine = (local >= 0) & (local < table.shape[0])
+        rows = table[torch.where(mine, local, 0)]
+        h = collectives.psum(torch.where(mine[..., None], rows, 0.0),
+                             "model")
+    else:
+        h = table[ids]
+    h = h.to(cfg.compute_dtype)
     if cfg.scale_embeddings:
         # the scale is rounded to the compute dtype before the multiply
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype,
                              device=h.device)
-    return h
+    return pspec.constrain(h, "batch", None, None)
 
 
 def _head(params: Transformer, h: torch.Tensor, cfg: ModelConfig
@@ -235,6 +269,9 @@ def _head(params: Transformer, h: torch.Tensor, cfg: ModelConfig
         logits = torch.einsum("bld,vd->blv", h, params.embed.to(h.dtype))
     else:
         logits = torch.einsum("bld,dv->blv", h, params.lm_head.to(h.dtype))
+    logits = pspec.constrain(logits, "batch", None, "model")
+    if pspec.model_divides(cfg.padded_vocab):
+        logits = collectives.all_gather(logits, "model", dim=-1)
     logits = logits.to(torch.float32)
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
@@ -251,14 +288,28 @@ def _positions(B: int, L: int, device) -> torch.Tensor:
     return torch.arange(L, dtype=torch.int32, device=device)[None].expand(B, L)
 
 
+def _angles_for(batch: Dict[str, torch.Tensor], positions: torch.Tensor,
+                cfg: ModelConfig) -> Optional[torch.Tensor]:
+    """M-RoPE's angles (rope_type "mrope"), else None (text RoPE)."""
+    if cfg.rope_type != "mrope":
+        return None
+    pos3 = batch.get("positions_3d")
+    if pos3 is None:
+        pos3 = rope_lib.text_positions_3d(positions)
+    return rope_lib.mrope_angles(torch.as_tensor(pos3, device=positions.device),
+                                 cfg.head_dim_, cfg.rope_theta,
+                                 cfg.mrope_sections)
+
+
 def apply(params: Transformer, batch: Dict[str, torch.Tensor],
           cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training/eval forward: (full-sequence logits [B, L, V], the MoE
     balance loss summed over layers, float32)."""
     h = _embed(params, batch, cfg)
     B, L = h.shape[0], h.shape[1]
-    h, _, aux = _run_stack(params, h, _positions(B, L, h.device), cfg,
-                           "train", None)
+    positions = _positions(B, L, h.device)
+    h, _, aux = _run_stack(params, h, positions, cfg, "train", None,
+                           _angles_for(batch, positions, cfg))
     return _head(params, h, cfg), aux
 
 
@@ -268,7 +319,18 @@ def loss_fn(params: Transformer, batch: Dict[str, torch.Tensor],
     ``labels < 0`` masked) + 0.01 x the MoE balance loss. Returns (total,
     {"loss": total, "ce", "aux"}), float32 scalars."""
     logits, aux = apply(params, batch, cfg)
-    labels = batch["labels"].long()
+    nll_sum, count = ce_terms(logits, batch["labels"])
+    ce = nll_sum / torch.clamp(count, min=1.0)
+    total = ce + 0.01 * aux
+    return total, {"loss": total, "ce": ce, "aux": aux}
+
+
+def ce_terms(logits: torch.Tensor, labels: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the summed next-token NLL over the labels >= 0, their count), in
+    float32: ``loss_fn``'s cross entropy is their quotient (a placed step
+    sums both over its data-parallel ranks first)."""
+    labels = torch.as_tensor(labels, device=logits.device).long()
     mask = (labels >= 0).to(torch.float32)
     safe = torch.clamp(labels, min=0)
     lse = torch.logsumexp(logits, dim=-1)
@@ -276,10 +338,7 @@ def loss_fn(params: Transformer, batch: Dict[str, torch.Tensor],
     # vocabulary adds zeros to it, so a gather gives the same value
     picked = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = lse - picked
-    denom = torch.clamp(torch.sum(mask), min=1.0)
-    ce = torch.sum(nll * mask) / denom
-    total = ce + 0.01 * aux
-    return total, {"loss": total, "ce": ce, "aux": aux}
+    return torch.sum(nll * mask), torch.sum(mask)
 
 
 def prefill(params: Transformer, batch: Dict[str, torch.Tensor],
@@ -288,20 +347,25 @@ def prefill(params: Transformer, batch: Dict[str, torch.Tensor],
     h = _embed(params, batch, cfg)
     B, L = h.shape[0], h.shape[1]
     caches = init_caches(cfg, B, s_cache, h.device)
-    h, caches, _ = _run_stack(params, h, _positions(B, L, h.device), cfg,
-                              "prefill", caches)
+    positions = _positions(B, L, h.device)
+    h, caches, _ = _run_stack(params, h, positions, cfg, "prefill", caches,
+                              _angles_for(batch, positions, cfg))
     logits = _head(params, h[:, -1:], cfg)
     return logits[:, 0], caches
 
 
-def decode_step(params: Transformer, caches: Caches, tokens: torch.Tensor,
-                positions: torch.Tensor, cfg: ModelConfig
+def decode_step(params: Transformer, caches: Caches,
+                tokens: Optional[torch.Tensor], positions: torch.Tensor,
+                cfg: ModelConfig, embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Caches]:
-    """One decode step. tokens [B, 1]; positions [B, 1]. Returns (logits
-    [B, V], caches): attention caches are written in place, SSM caches
-    replaced."""
-    h = _embed(params, {"tokens": tokens}, cfg)
-    h, caches, _ = _run_stack(params, h, positions, cfg, "decode", caches)
+    """One decode step. tokens [B, 1] (or embeds [B, 1, D]); positions
+    [B, 1]. Returns (logits [B, V], caches): attention caches are written
+    in place, SSM caches replaced. Decode uses text RoPE even after an
+    M-RoPE prefill, as the reference does."""
+    batch = {"tokens": tokens} if embeds is None else {"embeds": embeds}
+    h = _embed(params, batch, cfg)
+    h, caches, _ = _run_stack(params, h, positions, cfg, "decode", caches,
+                              None)
     logits = _head(params, h, cfg)
     return logits[:, 0], caches
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -77,14 +77,18 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree, state: dict
+def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree, state: dict,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Tree, dict, dict]:
     """One step, in place: ``params``, ``state["m"]``, ``state["v"]`` and
-    ``state["step"]`` take the new values. Returns (params, state,
+    ``state["step"]`` take the new values. ``gnorm`` is the global
+    gradient norm when the caller holds only shards of the tree (a placed
+    step); by default ``global_norm(grads)``. Returns (params, state,
     {"grad_norm", "lr"})."""
     p_tree, g_tree = named(params), named(grads)
     step = state["step"] + 1
-    gnorm = global_norm(g_tree)
+    if gnorm is None:
+        gnorm = global_norm(g_tree)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     lr = schedule(cfg, step)

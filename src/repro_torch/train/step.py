@@ -7,6 +7,11 @@ axis) over an explicit list of pod devices: one parameter replica per pod,
 the global batch split into contiguous per-pod slices as ``P("pod")``
 splits it, each pod's gradients reduced by ``compress.integer_psum_grads``
 in the reference's layout and one AdamW update per replica, so every replica ends bit-identical.
+
+Given a model placed over a mesh (``models.placement.Placed``), the
+train, prefill and decode steps run over it: one program per rank, TP
+and FSDP by the sharding rules, the MoE expert-parallel where the
+reference's condition holds (``models.placement``).
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
-from repro_torch.models import convert
+from repro_torch.models import convert, placement
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import compress
@@ -45,9 +50,12 @@ def loss_and_grads(params: tf.Transformer, batch: Batch, cfg: ModelConfig
 
 def make_train_step(cfg: ModelConfig, optc: AdamWConfig):
     """(params, opt_state, batch) → (params, opt_state, metrics); params and
-    opt_state are updated in place and returned."""
+    opt_state are updated in place and returned. A placed model takes
+    ``placement.place_opt``'s per-rank state and the global batch."""
 
     def train_step(params: tf.Transformer, opt_state: dict, batch: Batch):
+        if isinstance(params, placement.Placed):
+            return placement.train_step(params, opt_state, batch, cfg, optc)
         metrics, grads = loss_and_grads(params, batch, cfg)
         params, opt_state, om = adamw_update(optc, params, grads, opt_state)
         return params, opt_state, {**metrics, **om}
@@ -138,13 +146,24 @@ def bind_state(state: dict, cfg: ModelConfig
 
 
 def make_prefill_step(cfg: ModelConfig, s_cache: int):
+    """(params, batch) → (last-position logits, caches); over a placed
+    model the logits are the global batch's and the caches are placed
+    (``placement.PlacedCaches``)."""
     def prefill_step(params: tf.Transformer, batch: Batch):
+        if isinstance(params, placement.Placed):
+            return placement.prefill(params, batch, s_cache)
         return tf.prefill(params, batch, cfg, s_cache)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig):
+    """(params, caches, tokens, positions, embeds=None) → (logits,
+    caches), placed or not as ``make_prefill_step``."""
     def decode_step(params: tf.Transformer, caches, tokens: torch.Tensor,
-                    positions: torch.Tensor):
-        return tf.decode_step(params, caches, tokens, positions, cfg)
+                    positions: torch.Tensor, embeds=None):
+        if isinstance(params, placement.Placed):
+            return placement.decode_step(params, caches, tokens, positions,
+                                         embeds)
+        return tf.decode_step(params, caches, tokens, positions, cfg,
+                              embeds=embeds)
     return decode_step

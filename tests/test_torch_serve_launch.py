@@ -49,8 +49,8 @@ def test_serve_runs_and_audits(extra):
 
 
 @pytest.mark.parametrize("arch,message", [
-    ("musicgen-large", "ROADMAP.md Queue 1 item 15d"),
-    ("qwen2-vl-7b", "ROADMAP.md Queue 1 item 15d")])
+    ("musicgen-large", "takes stub embeddings; pick a token arch"),
+    ("qwen2-vl-7b", "takes stub embeddings; pick a token arch")])
 def test_serve_refuses_unserved_archs(arch, message):
     res = serve("--arch", arch, "--reduced", "--device", "cpu")
     assert res.returncode != 0

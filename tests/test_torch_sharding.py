@@ -1,4 +1,4 @@
-"""The port's partition rules against the reference's: every token arch's
+"""The port's partition rules against the reference's: every arch's
 full CONFIG (its parameters' shapes from the port's ``Transformer`` built
 on the meta device, the reference's from ``jax.eval_shape``) at mesh shapes
 (16, 16), (2, 16, 16) and (1, 1); the batch, logits and decode-cache specs
@@ -12,14 +12,13 @@ import repro  # noqa: F401
 from repro.configs import get_config as jax_config
 from repro.models import sharding as jshd
 from repro.models import transformer as jtf
-from repro_torch.configs import ARCH_IDS, UNPORTED
+from repro_torch.configs import ARCH_IDS
 from repro_torch.configs import get_config as torch_config
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import convert
 from repro_torch.models import sharding as tshd
 from repro_torch.models import transformer as ttf
 
-TOKEN_ARCHS = [a for a in ARCH_IDS if a not in UNPORTED]
 MESHES = {"16x16": tmesh.make_production_mesh(),
           "2x16x16": tmesh.make_production_mesh(multi_pod=True),
           "1x1": tmesh.Mesh(("data", "model"), (1, 1))}
@@ -30,7 +29,7 @@ def _as_tuples(tree):
         x, jax.sharding.PartitionSpec))
 
 
-@pytest.mark.parametrize("arch", TOKEN_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_and_io_specs_match_reference(arch):
     jcfg, tcfg = jax_config(arch), torch_config(arch)
     shapes = jax.eval_shape(lambda: jtf.init_params(jcfg,
