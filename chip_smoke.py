@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--docs 2048] [--seed 0]
+    python3 chip_smoke.py [--docs 1536] [--seed 0]
 
 Phases (any failure raises and exits non-zero):
 
@@ -37,8 +37,8 @@ Phases (any failure raises and exits non-zero):
    counts of each library (``cuobjdump -sass``);
 3. engine — the flat engine at full width (d = 2304, gemma2-2b's d_model;
    131072-row arena; Q16.16; ef_coarse = 256): ingest seeded float32
-   embeddings in batches of 512 (2048 documents by default; after the
-   fourth batch, the ``memory_hash`` and the exact route's
+   embeddings in batches of 512 (1536 documents by default; after the
+   third batch, the ``memory_hash`` and the exact route's
    ``retrieval_hash`` of one query batch are recorded for phase 6, their
    launches counted apart), delete 1 % and re-link, retrieve batches
    of 64 queries (k = 10) on the forced exact route (qgemm + qtopk; one
@@ -63,7 +63,7 @@ Phases (any failure raises and exits non-zero):
    round trip through a chunk store (1 MiB chunks, temporary directory),
    and its code table a VLRQ round trip, with unchanged hashes;
 5. durable — the engine at the same width with ``durable_dir`` in a
-   temporary directory and ``checkpoint_every = 1024``: 3 batches of 512
+   temporary directory and ``checkpoint_every = 1024``: 2 batches of 512
    ingested (the first also into an in-memory engine, whose hash it must
    equal), 1 % deleted, ``checkpoint()``, one more batch; its state hash
    and the exact and coarse ``retrieval_hash`` of 64 queries are recorded
@@ -88,7 +88,7 @@ Phases (any failure raises and exits non-zero):
    launches (zeroed before the durable engine is built, read after the
    recovered engine's reads and replay);
 6. sharded — ``ServeConfig(shards=4)`` at the same width over the same
-   131072-row arena (4 x 32768): phase 3's first 2048 documents, whose
+   131072-row arena (4 x 32768): phase 3's first 1536 documents, whose
    ``memory_hash`` and exact ``retrieval_hash`` must equal phase 3's
    record; 1 % deleted and a re-link; the exact route (one cold batch,
    then 20), HNSW (ef = 64; one cold, then 3) and coarse (ef_coarse = 256;
@@ -113,7 +113,7 @@ Phases (any failure raises and exits non-zero):
    ``net.ShardServer`` on 127.0.0.1 ephemeral ports, in this process so
    their launches count, ``SHARD_ROWS`` rows each) serve
    ``ServeConfig(hosts=[...], replicas=1, follow=FollowerPolicy())``:
-   phase 3's first 2048 documents, whose ``memory_hash`` and exact
+   phase 3's first 1536 documents, whose ``memory_hash`` and exact
    ``retrieval_hash`` must equal phase 3's record; phase 6's 1 % deleted
    (no re-link: the hosts keep the replay graph); over the wire (the pool
    detached) the exact and coarse reads of phase 6's first query batch
@@ -220,7 +220,7 @@ Phases (any failure raises and exits non-zero):
    prefill and 4 decode steps within 1e-4 relative;
 12. multi-device — over (data 2, model 2) on ``[cuda] * 4``: (a)
    granite-moe-3b-a800m's CONFIG in f32 placed by the sharding rules
-   (``models.placement``), ``make_prefill_step`` [8, 48] and 8 greedy
+   (``models.placement``), ``make_prefill_step`` [8, 48] and 4 greedy
    ``make_decode_step`` steps, the MoE expert-parallel (48 padded experts
    / 2), twice and equal bit for bit, against the same weights unplaced on
    each data shard's prompts (the expert-parallel capacity is per data
@@ -229,15 +229,30 @@ Phases (any failure raises and exits non-zero):
    x 128 at lr 1e-5 against the same steps unplaced: first loss within
    1e-5, each gradient leaf within 1e-4 and the parameters after step 2
    within 1e-5 (relative Frobenius over all of them; the worst leaf is
-   printed); (c) phi3.5-moe's 2 MoE layers at
-   full width in f32 on (data 1, model 4): expert-parallel == the
-   one-device path bit for bit on 8 x 64 tokens (top-2);
+   printed), with ``remat="block"`` recomputing every rank's blocks: the
+   first step's loss and gradients, and the two steps' losses and
+   parameters, equal to the same steps without remat bit for bit, the
+   peak memory of a step printed both ways; (c) phi3.5-moe's 2 MoE layers
+   at full width in f32 on (data 1, model 4): expert-parallel == the
+   one-device path bit for bit on 8 x 64 tokens (top-2); over (data 1,
+   model 8) on ``[cuda] * 8``, full width in f32 cut to 2 layers: (d)
+   gemma2-2b, whose 8 query heads split over ``model`` and 4 key/value
+   heads do not (the ``q_heads`` layout: K/V replicated), and (e)
+   qwen2-vl-7b, whose 28 heads do not split 8 ways (the ``sequence``
+   layout: each rank attends 6 of the 48 query rows), on seeded embeddings
+   with non-text M-RoPE positions: prefill [8, 48] and 4 greedy steps
+   (qwen2-vl fed its tokens' embedding rows), twice and equal bit for bit,
+   against the same weights unplaced: logits within 1e-5 relative, the
+   same tokens;
 13. roofline — the op walk (``roofline.op_walk``) on ``meta`` tensors over
    phase 10(a)'s step, phase 8's decode step and one rank's program of
    phase 12(a)'s placed prefill, each beside the time its phase measured
    and the share that time is of its bound (the H100 SXM data sheet's
    constants, ``roofline.analysis``); then ``launch.dryrun``'s gemma2-2b x
-   train_4k cell on the single production mesh. Phases 11-13 launch none
+   train_4k cell on the single production mesh, its operations per device
+   beside their count when every model rank computed every head (4.936e14,
+   before the reference's attention layouts were ported). Phases 11-13
+   launch none
    of the four kernels; their counts are read and printed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -285,8 +300,8 @@ EXACT_BATCHES = 50
 HNSW_BATCHES = 10
 COARSE_BATCHES = 50
 CHUNK_SIZE = 1 << 20  # v2 snapshot chunks at full width
-DURABLE_BATCHES = 3  # phase 5 ingests 3 batches, deletes 1 %, checkpoints,
-CHECKPOINT_EVERY = 1024  # then one more batch
+DURABLE_BATCHES = 2  # phase 5 ingests 2 batches, deletes 1 %, checkpoints,
+CHECKPOINT_EVERY = 1024  # then one more batch (cut from 3 for the time limit)
 # phase 5's group-commit and compaction engines: d = 2304 over a smaller
 # arena (each full-size genesis snapshot or restore costs 20-35 s of 8 KB
 # chunks on the host)
@@ -296,7 +311,7 @@ SIDE_CAPACITY = 8192
 # documents
 SHARDS = 4
 SHARD_ROWS = CAPACITY // SHARDS
-SHARD_DOCS = 2048
+SHARD_DOCS = 1536  # cut from 2048 to keep the run inside its time limit
 SHARD_EXACT_BATCHES = 20
 SHARD_HNSW_BATCHES = 3
 SHARD_COARSE_BATCHES = 20
@@ -404,7 +419,7 @@ MESH_SHAPE = (2, 2)
 MD_ARCH = "granite-moe-3b-a800m"
 MD_BATCH = 8
 MD_LEN = 48
-MD_NEW = 8
+MD_NEW = 4  # cut from 8 to keep the run inside its time limit
 MD_S_CACHE = 64
 MD_LOGITS_REL = 1e-4
 MD_TRAIN_LAYERS = 4
@@ -416,9 +431,18 @@ MD_LOSS_REL = 1e-5
 MD_GRAD_REL = 1e-4
 MD_PARAM_REL = 1e-5
 EP_TOKENS = (8, 64)
+# (d), (e): each arch's CONFIG in f32 cut to MD_LAYOUT_LAYERS layers over
+# MD_LAYOUT_SHAPE, with the attention layout it must take there
+MD_LAYOUTS = {"gemma2-2b": "q_heads", "qwen2-vl-7b": "sequence"}
+MD_LAYOUT_SHAPE = (1, 8)
+MD_LAYOUT_LAYERS = 2
+MD_LAYOUT_REL = 1e-5
 # phase 13: the op walk of three measured steps, and one dry-run cell
 DRY_SHAPE = "train_4k"
 HAND_OPS_TRAIN = 2.1e13  # PERF.md §2's estimate of phase 10(a)'s step
+# the dry-run cell's operations per device when every model rank computed
+# every head, before the reference's attention layouts were ported
+DRY_OPS_BEFORE = 4.936e14
 
 REPLACES = {
     "qboundary": "src/repro/kernels/qboundary/kernel.py:29",
@@ -3765,14 +3789,16 @@ def md_serve(torch, dev, seed: int, cfg) -> dict:
 
 def md_train(torch, dev, seed: int, cfg) -> dict:
     """(b): the first MD_TRAIN_LAYERS layers placed, MD_TRAIN_STEPS of
-    ``make_train_step`` at MD_LR, against the same steps unplaced
-    (``placement.unplaced_loss_and_grads``: each data shard's batch on its
-    own, as the expert-parallel capacity is per shard)."""
-    from repro_torch.models import placement
+    ``make_train_step`` at MD_LR with block remat, against the same steps
+    unplaced (``placement.unplaced_loss_and_grads``: each data shard's
+    batch on its own, as the expert-parallel capacity is per shard) and
+    against the same placed steps without remat (bit for bit)."""
+    from repro_torch.models import collectives, placement
     from repro_torch.models import transformer as tf
     from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
     from repro_torch.train.step import make_train_step
-    cfg = dataclasses.replace(cfg, num_layers=MD_TRAIN_LAYERS)
+    cfg = dataclasses.replace(cfg, num_layers=MD_TRAIN_LAYERS, remat="block")
+    bare = dataclasses.replace(cfg, remat="none")
     rng = np.random.default_rng(seed + 13)
     batches = []
     for _ in range(MD_TRAIN_STEPS):
@@ -3783,9 +3809,53 @@ def md_train(torch, dev, seed: int, cfg) -> dict:
     model = tf.init_params(cfg, torch.Generator(dev).manual_seed(seed))
     mesh = md_mesh(dev)
     optc = AdamWConfig(lr=MD_LR)
+
+    recomputes = [0]
+    recompute = collectives._RematGroup._recompute
+
+    def counted(group):
+        recomputes[0] += 1
+        return recompute(group)
+
+    def grads_and_peak(placed, c):
+        """``loss_and_grads``, the bytes every rank's forward kept for the
+        backward pass (counted by a saved-tensor hook around each rank's
+        ``apply``; a remat block keeps none of its own) and the peak memory
+        above what was live before it."""
+        apply, saved = tf.apply, [0]
+
+        def counting(*args):
+            def pack(t):
+                saved[0] += t.numel() * t.element_size()
+                return t
+
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                return apply(*args)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tf.apply = counting
+        try:
+            metrics, grads = placement.loss_and_grads(placed, batches[0], c)
+        finally:
+            tf.apply = apply
+        torch.cuda.synchronize()
+        return (metrics, grads, saved[0],
+                torch.cuda.max_memory_allocated() - base)
+
     placed = placement.place(model, cfg, mesh)
     popt = placement.place_opt(adamw_init(model), placed)
-    metrics, grads = placement.loss_and_grads(placed, batches[0], cfg)
+    collectives._RematGroup._recompute = counted
+    try:
+        metrics, grads, saved, peak = grads_and_peak(placed, cfg)
+    finally:
+        collectives._RematGroup._recompute = recompute
+    m0, g0, saved0, peak0 = grads_and_peak(placed, bare)
+    same_grads = torch.equal(metrics["loss"], m0["loss"]) and all(
+        torch.equal(g0[r][k], grads[r][k]) for r in range(mesh.size)
+        for k in placed.shapes)
+    del g0
     loss, want = placement.unplaced_loss_and_grads(model, batches[0], cfg,
                                                    mesh)
     loss_rel = abs(float(metrics["loss"]) - float(loss)) / abs(float(loss))
@@ -3793,15 +3863,25 @@ def md_train(torch, dev, seed: int, cfg) -> dict:
         grads, placed, k, dev) - want[k]) / torch.linalg.vector_norm(
             want[k]).clamp(min=1e-30)) for k in placed.shapes}
     grad_rel = max(grad_rels.values())
-    del grads
-    step = make_train_step(cfg, optc)
-    ms = []
-    for b in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(placed, popt, b)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+    del grads, want
+    # the same steps with and without remat, each from the same placement
+    twin = placement.place(model, cfg, mesh)
+    twin_opt = placement.place_opt(adamw_init(model), twin)
+    ms, losses = {"block": [], "none": []}, {"block": [], "none": []}
+    for key, c, p, o in (("block", cfg, placed, popt),
+                         ("none", bare, twin, twin_opt)):
+        step = make_train_step(c, optc)
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[key].append(step(p, o, b)[2]["loss"])
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+    same_steps = all(torch.equal(a, b) for a, b in zip(losses["block"],
+                                                       losses["none"])) \
+        and all(torch.equal(placed.shards[r][k], twin.shards[r][k])
+                for r in range(mesh.size) for k in placed.shapes)
+    del twin, twin_opt
     opt = adamw_init(model)
     for b in batches:
         _, g = placement.unplaced_loss_and_grads(model, b, cfg, mesh)
@@ -3821,14 +3901,135 @@ def md_train(torch, dev, seed: int, cfg) -> dict:
     param_rel = (sq_diff / sq_norm) ** 0.5
     worst = max(leaf_rels, key=leaf_rels.get)
     out = dict(cfg=cfg, loss=float(metrics["loss"]), loss_rel=loss_rel,
-               grad_rel=grad_rel, param_rel=param_rel, ms=ms,
+               grad_rel=grad_rel, param_rel=param_rel, ms=ms["block"],
+               ms_bare=ms["none"], peak=peak, peak_bare=peak0,
+               saved=saved, saved_bare=saved0,
+               recomputes=recomputes[0], same_grads=same_grads,
+               same_steps=same_steps,
                worst=(worst, leaf_rels[worst], grad_rels[worst]))
     if not (loss_rel <= MD_LOSS_REL and grad_rel <= MD_GRAD_REL
             and param_rel <= MD_PARAM_REL):
         raise AssertionError(
             f"placed training != unplaced: loss {loss_rel:.3g}, gradients "
             f"{grad_rel:.3g}, parameters {param_rel:.3g}")
+    if recomputes[0] != MD_TRAIN_LAYERS:
+        raise AssertionError(f"{recomputes[0]} blocks recomputed, not "
+                             f"{MD_TRAIN_LAYERS}")
+    if not saved < saved0:
+        raise AssertionError(f"remat kept {saved} bytes for the backward "
+                             f"pass, {saved0} without it")
+    if not (same_grads and same_steps):
+        raise AssertionError(f"placed remat != no remat: first step "
+                             f"{same_grads}, {MD_TRAIN_STEPS} steps "
+                             f"{same_steps}")
     del placed, popt, model, opt
+    fresh_card(torch)
+    return out
+
+
+def md_layout(torch, dev, seed: int, arch: str, cfg=None) -> dict:
+    """(d) and (e): ``arch``'s CONFIG in f32 cut to MD_LAYOUT_LAYERS
+    layers over MD_LAYOUT_SHAPE, where its attention takes the layout
+    MD_LAYOUTS names: prefill [MD_BATCH, MD_LEN] and MD_NEW greedy steps
+    (external embeddings: seeded, with non-text M-RoPE positions, each
+    decode step fed the embedding row of the token it chose), twice,
+    equal bit for bit; against the same weights unplaced."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import placement, pspec
+    from repro_torch.models import transformer as tf
+    cfg = cfg or dataclasses.replace(get_config(arch), dtype="float32",
+                                     num_layers=MD_LAYOUT_LAYERS)
+    mesh = md_mesh(dev, MD_LAYOUT_SHAPE)
+    layout = pspec.attn_layout(cfg, mesh)
+    if layout != MD_LAYOUTS[arch]:
+        raise AssertionError(f"{arch}: layout {layout} over {mesh.shape}")
+    rng = np.random.default_rng(seed + 15)
+    if cfg.external_embeddings:
+        inputs = {k: torch.as_tensor(v, device=dev) for k, v in ext_inputs(
+            cfg, rng, MD_BATCH, MD_LEN).items()}
+    else:
+        inputs = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (MD_BATCH, MD_LEN), dtype=np.int32),
+            device=dev)}
+    fresh_card(torch)
+    params = tf.init_params(cfg, torch.Generator(dev).manual_seed(seed))
+    params.requires_grad_(False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = placement.place(params, cfg, mesh)
+    torch.cuda.synchronize()
+    out = dict(cfg=cfg, layout=layout, place_s=time.perf_counter() - t0,
+               n_params=sum(p.numel() for p in params.parameters()),
+               shard_bytes=sum(t.numel() * t.element_size()
+                               for t in placed.shards[0].values()))
+
+    def feed(tok):
+        """The next step's input: the token, or its embedding row."""
+        if cfg.external_embeddings:
+            return None, params.embed[tok[:, 0]][:, None].to(
+                cfg.compute_dtype)
+        return tok, None
+
+    def generate(prefill, decode):
+        logits, caches = prefill()
+        toks, seen = [], [logits]
+        for t in range(MD_NEW):
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            toks.append(tok)
+            if t + 1 == MD_NEW:
+                break
+            pos = torch.full((MD_BATCH, 1), MD_LEN + t, dtype=torch.int32,
+                             device=dev)
+            logits, caches = decode(caches, *feed(tok), pos)
+            seen.append(logits)
+        return torch.cat(toks, 1), seen
+
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, pc = placement.prefill(placed, inputs, MD_S_CACHE)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got, seen = generate(
+                lambda: (logits, pc),
+                lambda c, tok, emb, pos: placement.decode_step(
+                    placed, c, tok, pos, emb))
+            torch.cuda.synchronize()
+            runs.append(dict(tokens=got, logits=seen,
+                             prefill_ms=(t1 - t0) * 1e3,
+                             decode_ms=(time.perf_counter() - t1) * 1e3
+                             / (MD_NEW - 1)))
+        a, b = runs
+        if not (torch.equal(a["tokens"], b["tokens"]) and all(
+                torch.equal(x, y) for x, y in zip(a["logits"],
+                                                  b["logits"]))):
+            raise AssertionError(f"{arch}: placed rerun differs")
+        # the same weights unplaced, fed the placed run's tokens
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [tf.prefill(params, inputs, cfg, MD_S_CACHE)]
+        for t in range(MD_NEW - 1):
+            pos = torch.full((MD_BATCH, 1), MD_LEN + t, dtype=torch.int32,
+                             device=dev)
+            tok, emb = feed(a["tokens"][:, t:t + 1])
+            want.append(tf.decode_step(params, want[-1][1], tok, pos, cfg,
+                                       embeds=emb))
+        torch.cuda.synchronize()
+        out["unplaced_s"] = time.perf_counter() - t0
+    rels = [rel_err(torch, g, w[0], cfg.vocab_size)
+            for g, w in zip(a["logits"], want)]
+    want_tokens = torch.stack([torch.argmax(w[0], -1) for w in want], 1)
+    out.update(runs=runs, rel=max(rels),
+               same_tokens=bool(torch.equal(a["tokens"], want_tokens.to(
+                   torch.int32))),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if not out["rel"] <= MD_LAYOUT_REL or not out["same_tokens"]:
+        raise AssertionError(f"{arch} placed != unplaced: logits "
+                             f"{out['rel']:.3g}, tokens equal "
+                             f"{out['same_tokens']}")
+    del placed, params, runs, want
     fresh_card(torch)
     return out
 
@@ -3881,15 +4082,21 @@ def md_expert_parallel(torch, dev, seed: int, cfg=None) -> dict:
     return out
 
 
-def run_multidevice(torch, dev, seed: int, cfg=None, phi_cfg=None) -> dict:
-    """Phase 12 (``cfg`` and ``phi_cfg`` replace MD_ARCH's CONFIG and
-    phi3.5-moe's in a CPU rehearsal)."""
+def run_multidevice(torch, dev, seed: int, cfg=None, phi_cfg=None,
+                    layout_cfgs=None) -> dict:
+    """Phase 12 (``cfg``, ``phi_cfg`` and ``layout_cfgs`` (arch → config)
+    replace MD_ARCH's CONFIG, phi3.5-moe's and those of MD_LAYOUTS in a
+    CPU rehearsal)."""
     from repro_torch.configs import get_config
     cfg = cfg or dataclasses.replace(get_config(MD_ARCH), dtype="float32")
+    layout_cfgs = layout_cfgs or {}
     t0 = time.perf_counter()
     out = dict(serve=md_serve(torch, dev, seed, cfg),
                train=md_train(torch, dev, seed, cfg),
-               ep=md_expert_parallel(torch, dev, seed, phi_cfg))
+               ep=md_expert_parallel(torch, dev, seed, phi_cfg),
+               layouts={arch: md_layout(torch, dev, seed, arch,
+                                        layout_cfgs.get(arch))
+                        for arch in MD_LAYOUTS})
     out["s"] = time.perf_counter() - t0
     return out
 
@@ -3920,6 +4127,16 @@ def report_multidevice(r) -> None:
         f"{tr['worst'][0]}, {tr['worst'][1]:.3g} with its gradient at "
         f"{tr['worst'][2]:.3g}); step ms {[round(x, 1) for x in tr['ms']]} "
         f"({card})")
+    log(f"[multidevice] block remat under the mesh: {tr['recomputes']} "
+        f"blocks recomputed in the first step; its loss and every "
+        f"gradient, and the {MD_TRAIN_STEPS} steps' losses and parameters, "
+        f"equal the same steps without remat bit for bit; the four ranks' "
+        f"forwards kept {tr['saved'] / 2**30:.3f} GiB for the backward "
+        f"pass with remat, {tr['saved_bare'] / 2**30:.3f} GiB without; "
+        f"peak above the live state in one loss_and_grads "
+        f"{tr['peak'] / 2**30:.3f} GiB with remat, "
+        f"{tr['peak_bare'] / 2**30:.3f} GiB without; step ms without remat "
+        f"{[round(x, 1) for x in tr['ms_bare']]} ({card})")
     log(f"[multidevice] {ep['cfg'].name} MoE layers at full width (d="
         f"{ep['cfg'].d_model}, {ep['cfg'].padded_experts} experts, top-"
         f"{ep['cfg'].num_experts_per_tok}) on (data 1, model 4): "
@@ -3928,6 +4145,25 @@ def report_multidevice(r) -> None:
         f"{[round(x, 1) for x in ep['ms']]} (one device "
         f"{[round(x, 1) for x in ep['dense_ms']]}); peak "
         f"{ep['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    for arch, lo in r["layouts"].items():
+        cfg, (a, b) = lo["cfg"], lo["runs"]
+        d, m = MD_LAYOUT_SHAPE
+        feed = "seeded embeddings with non-text M-RoPE positions, decode " \
+            "fed its tokens' embedding rows" if cfg.external_embeddings \
+            else "tokens"
+        log(f"[multidevice] {arch} CONFIG in f32 cut to {cfg.num_layers} "
+            f"layers ({lo['n_params']} parameters, {cfg.num_heads} query / "
+            f"{cfg.num_kv_heads} key-value heads) over (data {d}, model {m}) "
+            f"on {d * m} ranks of one card: the {lo['layout']} layout, "
+            f"placed in {lo['place_s']:.2f} s, "
+            f"{lo['shard_bytes'] / 2**30:.2f} GiB on rank 0; prefill "
+            f"[{MD_BATCH}, {MD_LEN}] on {feed} {a['prefill_ms']:.1f} / "
+            f"{b['prefill_ms']:.1f} ms, {MD_NEW} greedy steps at "
+            f"{a['decode_ms']:.1f} / {b['decode_ms']:.1f} ms per step (host "
+            f"clock), the rerun equal bit for bit; against the same weights "
+            f"unplaced ({lo['unplaced_s']:.1f} s): logits max relative error "
+            f"{lo['rel']:.3g} (tolerance {MD_LAYOUT_REL}), the same tokens; "
+            f"peak {lo['peak_bytes'] / 2**30:.2f} GiB ({card})")
 
 
 # --------------------------------------------------------------------------- #
@@ -4031,17 +4267,22 @@ def report_roofline(r) -> None:
         f"operations, {rl['wire_bytes_per_device']:.4g} wire bytes; "
         f"compute {rl['compute_s']:.4g} s, memory {rl['memory_s']:.4g} s, "
         f"collective {rl['collective_s']:.4g} s: {rl['dominant']}")
+    log(f"[roofline] dryrun {d['arch']} x {d['shape']}: "
+        f"{rl['flops']:.4g} operations per device ({d['tally']['dot_flops']:.4g} "
+        f"in products) in the reference's attention layouts, against "
+        f"{DRY_OPS_BEFORE:.4g} when every model rank computed every head "
+        f"({rl['flops'] / DRY_OPS_BEFORE:.3f} of it)")
     log(f"[roofline] phase 13 in {r['s']:.1f} s")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    # 2048 by default (phase 6's reference, the least) keeps the whole run
-    # inside its time limit with phases 11-13; --docs 3072, 4096 and 8192
-    # reproduce the hashes PERF.md records for them
-    ap.add_argument("--docs", type=int, default=2048,
+    # 1536 by default (phase 6's reference, the least) keeps the whole run
+    # inside its time limit with phases 11-13; --docs 2048, 3072, 4096 and
+    # 8192 reproduce the hashes PERF.md records for them
+    ap.add_argument("--docs", type=int, default=SHARD_DOCS,
                     help="documents phase 3 ingests (a multiple of 512, at "
-                    "least 2048)")
+                    f"least {SHARD_DOCS})")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.docs < SHARD_DOCS or args.docs % BATCH:

@@ -9,12 +9,14 @@ program of the cell's step alone (``collectives.solo``): the reference
 lowers its partitioned per-device module; every rank runs the same
 shapes. ``launch.dryrun`` walks ``step`` with ``roofline.op_walk``.
 
-Train cells run ``loss_fn``, its backward and AdamW on the rank's shards
-(the loss's sums and the gradient norm over the ranks are all-reduces, as
+Train cells run ``loss_fn``, its backward (block remat recomputes each
+block, as a placed step does) and AdamW on the rank's shards (the loss's
+sums and the gradient norm over the ranks are all-reduces, as
 ``placement.train_step`` takes them); prefill and decode cells run
-``transformer.prefill`` / ``decode_step``, with the caches in the layout
-the step computes in (``placement``'s storage → compute reshard around a
-placed decode step is not walked).
+``placement.serve_rank`` over ``transformer.prefill`` / ``decode_step``:
+a decode step reshards its caches from their storage layout
+(``cache_specs``) to the layout it computes in and back, a prefill
+reshards the caches it writes to storage, as a placed rank does.
 """
 from __future__ import annotations
 
@@ -73,21 +75,17 @@ def batch_struct(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig,
     return out
 
 
-def cache_struct(cfg: ModelConfig, mesh: Mesh, batch: int, s_cache: int,
-                 rank: int = 0):
-    """(a rank's caches in the layout its step computes in, the bytes of
-    its shards by ``cache_specs``)."""
-    specs, _ = placement.cache_layout(cfg, mesh, batch, s_cache)
+def cache_struct(cfg: ModelConfig, mesh: Mesh, batch: int, s_cache: int):
+    """(a rank's cache shards by ``cache_specs``, and the storage specs,
+    global shapes and compute specs that ``placement.serve_rank`` takes)."""
+    specs, shapes = placement.cache_layout(cfg, mesh, batch, s_cache)
     stored = placement._tree_map(
         lambda x, sp: _meta(collectives.shard_shape(sp, x.shape, mesh),
                             x.dtype),
         tf.init_caches(cfg, batch, s_cache, "meta"), specs)
-    b = _bspec(mesh, batch)
-    B = collectives.shard_shape((b,), (batch,), mesh)[0]
-    compute = collectives.solo(
-        mesh, lambda: tf.init_caches(cfg, B, s_cache, "meta"), index=rank,
-        batch_sharded=b is not None)
-    return compute, _nbytes(stored)
+    compute = placement.compute_layout(cfg, mesh, shapes, batch,
+                                       _bspec(mesh, batch) is not None)
+    return stored, (shapes, specs, compute)
 
 
 @dataclasses.dataclass
@@ -146,29 +144,27 @@ def build_cell(arch: str, shape_name: str, mesh: Mesh,
             batch_sharded=sharded)
         return cell
 
+    caches, layout = cache_struct(cfg, mesh, shape.global_batch,
+                                  shape.seq_len)
     if shape.kind == "prefill":
         batch = batch_struct(cfg, mesh, shape, labels=False)
-        _, cache_bytes = cache_struct(cfg, mesh, shape.global_batch,
-                                      shape.seq_len)
-        cell.memory.update(batch=_nbytes(batch), caches=cache_bytes)
+        cell.memory.update(batch=_nbytes(batch), caches=_nbytes(caches))
         cell.step = lambda: collectives.solo(
-            mesh, lambda: tf.prefill(placed.view(0), batch, cfg,
-                                     shape.seq_len),
-            batch_sharded=sharded)
+            mesh, placement.serve_rank,
+            lambda view, b, _: tf.prefill(view, b, cfg, shape.seq_len),
+            placed.view(0), batch, None, *layout, batch_sharded=sharded)
         return cell
 
     # decode: one new token against a seq_len-deep cache
-    caches, cache_bytes = cache_struct(cfg, mesh, shape.global_batch,
-                                       shape.seq_len)
     one = dataclasses.replace(shape, seq_len=1)
     batch = batch_struct(cfg, mesh, one, labels=False)
     B = next(iter(batch.values())).shape[0]
-    positions = _meta((B, 1), torch.int32)
-    cell.memory.update(batch=_nbytes(batch) + _nbytes(positions),
-                       caches=cache_bytes)
+    batch["positions"] = _meta((B, 1), torch.int32)
+    cell.memory.update(batch=_nbytes(batch), caches=_nbytes(caches))
     cell.step = lambda: collectives.solo(
-        mesh, lambda: tf.decode_step(placed.view(0), caches,
-                                     batch.get("tokens"), positions, cfg,
-                                     embeds=batch.get("embeds")),
-        batch_sharded=sharded)
+        mesh, placement.serve_rank,
+        lambda view, b, c: tf.decode_step(view, c, b.get("tokens"),
+                                          b["positions"], cfg,
+                                          embeds=b.get("embeds")),
+        placed.view(0), batch, caches, *layout, batch_sharded=sharded)
     return cell

@@ -25,6 +25,11 @@ than the host's card count could not run at all.
   ranks that used it: the gradient reduced over the data-parallel axes.
   ``reshard_shards`` is its forward without autograd.
 
+``remat`` is block rematerialization across the ranks: a remat block
+keeps none of the tensors its forward saves for the backward pass, and
+the first read of one recomputes every rank's block together in a fresh
+``spmd`` run, so the recompute meets its collectives.
+
 Every collective reports its op, the bytes of each rank's result and its
 group size to ``recording``'s callbacks (the roofline's op walk); the
 copies and sums inside a collective are hidden from dispatch modes.
@@ -37,6 +42,7 @@ the identity.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
 import threading
@@ -148,10 +154,10 @@ class Rendezvous:
     barrier whose action (run once, by the last rank to arrive) computes
     every rank's result; a second barrier keeps the next collective from
     overwriting results not yet taken. Its ranks have finished by the
-    backward pass, so no collective may run again there (no remat). A rank
-    that returns while another waits at (or later reaches) a collective
-    breaks the barrier: the ranks diverged."""
-    replayable = False
+    backward pass, so a remat block's recompute runs in a fresh ``spmd``
+    (``remat``); the k-th remat block of every rank shares one
+    ``_RematGroup``. A rank that returns while another waits at (or later
+    reaches) a collective breaks the barrier: the ranks diverged."""
 
     def __init__(self, n: int):
         self._in: List[Any] = [None] * n
@@ -160,6 +166,8 @@ class Rendezvous:
         self._arrived = 0
         self._done = False
         self._barrier = threading.Barrier(n, action=self._run)
+        self._remats: Dict[int, _RematGroup] = {}
+        self._remat_next = [0] * n
 
     def _run(self) -> None:
         self._arrived = 0
@@ -194,11 +202,24 @@ class Rendezvous:
     def abort(self) -> None:
         self._barrier.abort()
 
+    def remat_group(self, index: int) -> "_RematGroup":
+        """Rank ``index``'s next remat block: the k-th block of every rank
+        gets the same group (the ranks run the same program)."""
+        with self._lock:
+            k = self._remat_next[index]
+            self._remat_next[index] += 1
+            group = self._remats.get(k)
+            if group is None:
+                group = self._remats[k] = _RematGroup(len(self._in))
+            group.joined += 1
+            if group.joined == len(self._in):
+                del self._remats[k]
+            return group
+
 
 class Solo:
     """The rendezvous of one rank's program run alone (``solo``). Its
-    collectives may run again in a backward pass (remat)."""
-    replayable = True
+    collectives may run again in a backward pass (torch's checkpoint)."""
 
 
 def solo(mesh: Mesh, fn: Callable, *args, index: int = 0,
@@ -300,6 +321,103 @@ def _group_size(axes: Tuple[str, ...]) -> int:
     if mesh is None:
         return 1
     return math.prod(mesh.shape[a] for a in axes if a in mesh.axis_names)
+
+
+# --------------------------------------------------------------------------- #
+# remat across the ranks
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class _Frame:
+    """One rank's remat block: its function and inputs, and how many
+    tensors its forward saved for the backward pass."""
+    fn: Callable
+    args: tuple
+    rank: Any
+    count: int = 0
+
+
+class _RematGroup:
+    """The same remat block on every rank of one ``spmd`` run: each rank's
+    ``_Frame`` and, once recomputed, the tensors each rank's block saves,
+    in the order it saved them."""
+
+    def __init__(self, n: int):
+        self.frames: List[Optional[_Frame]] = [None] * n
+        self.saved: Optional[List[List[Optional[torch.Tensor]]]] = None
+        self.joined = 0
+        self._lock = threading.Lock()
+
+    def read(self, index: int, i: int) -> torch.Tensor:
+        """Rank ``index``'s i-th saved tensor (each is read once)."""
+        with self._lock:
+            if self.saved is None:
+                self._recompute()
+        t = self.saved[index][i]
+        if t is None:
+            raise RuntimeError("a remat block's saved tensor was read twice")
+        self.saved[index][i] = None
+        return t
+
+    def _recompute(self) -> None:
+        frames = self.frames
+        saved: List[List[Optional[torch.Tensor]]] = [[] for _ in frames]
+
+        def body(r: int) -> None:
+            def pack(t: torch.Tensor):
+                saved[r].append(t.detach())
+
+            f = frames[r]
+            args = [a.detach().requires_grad_(a.requires_grad)
+                    if isinstance(a, torch.Tensor) else a for a in f.args]
+            with torch.enable_grad(), \
+                    torch.autograd.graph.saved_tensors_hooks(pack, _never):
+                f.fn(*args)
+
+        first = frames[0].rank
+        spmd(first.mesh, body, [(r,) for r in range(len(frames))],
+             batch_sharded=first.batch_sharded)
+        for f, got in zip(frames, saved):
+            if len(got) != f.count:
+                raise RuntimeError(f"a remat block saved {len(got)} tensors "
+                                   f"on recompute, {f.count} the first time")
+        self.saved, self.frames = saved, None
+
+
+def _never(_):
+    raise RuntimeError("a recomputed block's tensors are not unpacked")
+
+
+def _unpack(handle) -> torch.Tensor:
+    group, index, i = handle
+    return group.read(index, i)
+
+
+def _remat_call(fn: Callable, *args):
+    rank = pspec.current()
+    group = rank.rendezvous.remat_group(rank.index)
+    frame = group.frames[rank.index] = _Frame(fn, args, rank)
+
+    def pack(_t: torch.Tensor):
+        frame.count += 1
+        return group, rank.index, frame.count - 1
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, _unpack):
+        return fn(*args)
+
+
+def remat(fn: Callable) -> Callable:
+    """Inside a ``spmd`` run: ``fn`` with the tensors it saves for the
+    backward pass recomputed there instead of kept, with the same bits.
+    The first read recomputes every rank's call together (a fresh
+    ``spmd``, so its collectives meet); every rank wraps the same calls in
+    the same order. (Alone, under ``solo``, and with no ambient rank,
+    torch's checkpoint does this.)"""
+    if not isinstance(getattr(pspec.current(), "rendezvous", None),
+                      Rendezvous):
+        raise RuntimeError("collectives.remat runs inside collectives.spmd")
+    return functools.partial(_remat_call, fn)
 
 
 # --------------------------------------------------------------------------- #

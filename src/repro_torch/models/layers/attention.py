@@ -9,15 +9,26 @@ KV chunks a Python loop, with the same per-block arithmetic. The softcap
 rules out ``scaled_dot_product_attention``.
 
 M-RoPE (qwen2-vl) comes in as precomputed ``angles``; decode always uses
-text RoPE. Under a mesh (``models.pspec``) a rank whose heads divide the
-``model`` axis holds its slice of the heads (``models.placement`` gathers
-``wq``/``wk``/``wv``/``wo`` so), computes attention over them, and its
-partial output projection is summed over ``model``: the reference's
-head-sharded tensor parallelism. Head counts are read from the tensors,
-so the same code serves both.
+text RoPE. Under a mesh (``models.pspec``) attention takes the
+reference's layout over ``model`` (``pspec.attn_layout``;
+``models.placement`` gathers each rank's weights to it):
+
+  heads    : the rank holds its slice of the query and key/value heads,
+             attends over them, and its partial output projection is
+             summed over ``model`` (head-sharded tensor parallelism);
+  q_heads  : as heads, but the key/value heads are whole on every rank
+             (replicated); its query head h reads key/value head h // G;
+  sequence : the weights are whole; the rank projects q for its L/model
+             query rows (with their positions for RoPE and the mask),
+             attends them against the whole K/V, projects them out, and
+             the rows are gathered along L over ``model``. Zigzag is off.
+             Decode (L = 1) computes every head on every rank.
+
+Head counts are read from the tensors, so the same code serves all.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -70,18 +81,54 @@ class Attention(nn.Module):
 
 
 def _project_qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig,
-                 angles: torch.Tensor):
+                 angles: torch.Tensor, rows: Optional[slice] = None):
+    """q, k, v with RoPE; ``rows`` (sequence-parallel attention) limits q
+    to those rows of x and angles."""
     dtype = x.dtype
-    q = torch.einsum("bld,dhk->blhk", x, params.wq.to(dtype))
+    xq, aq = (x, angles) if rows is None else (x[:, rows], angles[:, rows])
+    q = torch.einsum("bld,dhk->blhk", xq, params.wq.to(dtype))
     k = torch.einsum("bld,dhk->blhk", x, params.wk.to(dtype))
     v = torch.einsum("bld,dhk->blhk", x, params.wv.to(dtype))
     if cfg.qkv_bias:
         q = q + params.bq.to(dtype)
         k = k + params.bk.to(dtype)
         v = v + params.bv.to(dtype)
-    q = rope_lib.apply_rope(q, angles)
+    q = rope_lib.apply_rope(q, aq)
     k = rope_lib.apply_rope(k, angles)
     return q, k, v
+
+
+def _kv_for(k: torch.Tensor, v: torch.Tensor, n_heads: int,
+            cfg: ModelConfig):
+    """The key/value heads [B, S, KV', Dh] that this rank's ``n_heads``
+    query heads read: under ``q_heads`` the rank's heads are the
+    contiguous slice at model index x n_heads and head h reads key/value
+    head h // G. Where ``model`` is a multiple of the key/value heads the
+    slice lies in one group and the rank takes that head; otherwise (say
+    6 / 3 heads over 2 ranks: heads 0-2 read 0, 0, 1) one key/value head
+    per query head. Elsewhere k and v as they are."""
+    if pspec.attn_layout(cfg) != "q_heads":
+        return k, v
+    G = cfg.num_heads // cfg.num_kv_heads
+    first = collectives.axis_index("model") * n_heads
+    if G % n_heads == 0:
+        return (k[:, :, first // G:first // G + 1],
+                v[:, :, first // G:first // G + 1])
+    idx = torch.arange(first, first + n_heads, device=k.device) // G
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _rows(cfg: ModelConfig, L: int) -> Optional[slice]:
+    """This rank's query rows under sequence-parallel attention over a
+    ``model`` group larger than one that divides L (the reference's
+    constraint replicates a dimension it does not divide); else None."""
+    if pspec.attn_layout(cfg) != "sequence":
+        return None
+    m = pspec.current_mesh().shape.get("model", 1)
+    if m == 1 or L % m:
+        return None
+    i = collectives.axis_index("model")
+    return slice(i * (L // m), (i + 1) * (L // m))
 
 
 def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
@@ -160,12 +207,15 @@ def _online_out(l, acc) -> torch.Tensor:
     return torch.movedim(out, 4, 2)
 
 
-def _flash_attend(q, k, v, q_pos, k_pos, cfg: ModelConfig, window):
-    """Memory-O(chunk) attention. q [B,Lq,H,Dh]; k,v [B,Lk,KV,Dh]."""
+def _flash_attend(q, k, v, q_pos, k_pos, cfg: ModelConfig, window,
+                  qc: Optional[int] = None):
+    """Memory-O(chunk) attention. q [B,Lq,H,Dh]; k,v [B,Lk,KV,Dh]; ``qc``
+    the query chunk (min(flash_q_chunk, Lq) by default: each query row's
+    arithmetic is the same for any chunk, the KV blocks set its order)."""
     B, Lq, H, Dh = q.shape
     Lk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qc = min(cfg.flash_q_chunk, Lq)
+    qc = qc or min(cfg.flash_q_chunk, Lq)
     kc = min(cfg.flash_kv_chunk, Lk)
     if Lq % qc or Lk % kc:
         raise ValueError(f"flash chunks do not divide: Lq={Lq} qc={qc}, "
@@ -229,10 +279,10 @@ def _flash_attend_zigzag(q, k, v, q_pos, k_pos, cfg: ModelConfig):
 
 def init_cache(batch: int, s_cache: int, cfg: ModelConfig, device) -> Cache:
     """One layer's cache: k, v [B, S, KV, Dh] in the compute dtype, and the
-    absolute position held in each slot (-1 = empty). Under head tensor
-    parallelism a rank holds its KV / model heads."""
+    absolute position held in each slot (-1 = empty). Under the
+    ``heads`` layout a rank holds its KV / model heads, elsewhere all."""
     KV, Dh = cfg.num_kv_heads, cfg.head_dim_
-    if pspec.heads_tp(cfg):
+    if pspec.attn_layout(cfg) == "heads":
         KV //= pspec.current_mesh().shape["model"]
     dt = cfg.compute_dtype
     return {
@@ -260,25 +310,28 @@ def _decode_attend(params: Attention, x, positions, cfg: ModelConfig,
     v_cache[bidx, write_idx] = v_new[:, 0]
     pos_cache[bidx, write_idx] = positions[:, 0].to(torch.int32)
 
-    H, KV, Dh = q.shape[2], k_new.shape[2], q.shape[3]  # this rank's heads
+    H, Dh = q.shape[2], q.shape[3]  # this rank's query heads
+    k_read, v_read = _kv_for(k_cache, v_cache, H, cfg)
+    KV = k_read.shape[2]
     G = H // KV
     qg = q.reshape(B, KV, G, Dh)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).to(torch.float32)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_read).to(torch.float32)
     s = _softcap(s * cfg.query_scale, cfg.attn_logit_softcap)
     ok = (pos_cache >= 0) & (pos_cache <= positions)  # [B, S]
     if window is not None:
         ok &= (positions - pos_cache) < window
     s = torch.where(ok[:, None, None], s, NEG_INF)
     w = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgs,bskd->bkgd", w, v_cache).reshape(B, 1, H, Dh)
+    out = torch.einsum("bkgs,bskd->bkgd", w, v_read).reshape(B, 1, H, Dh)
     o = torch.einsum("blhd,hdo->blo", out, params.wo.to(x.dtype))
     return _heads_sum(o, cfg), cache_slice
 
 
 def _heads_sum(out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Under head tensor parallelism each rank's output projection covers
-    its heads only: the one sum over ``model`` (the identity otherwise)."""
-    if pspec.heads_tp(cfg):
+    """Under the ``heads`` and ``q_heads`` layouts each rank's output
+    projection covers its query heads only: the one sum over ``model``
+    (the identity otherwise)."""
+    if pspec.attn_layout(cfg) in ("heads", "q_heads"):
         return collectives.psum(out, "model")
     return out
 
@@ -306,9 +359,12 @@ def attention(params: Attention, x: torch.Tensor, positions: torch.Tensor,
     if angles is None:
         angles = rope_lib.rope_angles(positions, cfg.head_dim_,
                                       cfg.rope_theta)
-    q, k, v = _project_qkv(params, x, cfg, angles)
-
     L = x.shape[1]
+    rows = _rows(cfg, L)
+    q, k, v = _project_qkv(params, x, cfg, angles, rows)
+    q_pos = positions if rows is None else positions[:, rows]
+    k_read, v_read = _kv_for(k, v, q.shape[2], cfg)
+
     use_flash = (cfg.attn_impl in ("flash", "latency")) or (
         cfg.attn_impl == "auto" and L >= cfg.flash_threshold)
     qc = min(cfg.flash_q_chunk, L)
@@ -317,16 +373,24 @@ def attention(params: Attention, x: torch.Tensor, positions: torch.Tensor,
         and L % qc == 0 and (L // qc) % 2 == 0 and L // qc >= 2
         # as the reference: zigzag only where attention is head-TP or
         # unsharded
-        and (pspec.current_mesh() is None
-             or pspec.model_divides(cfg.num_heads)))
+        and pspec.attn_layout(cfg) in (None, "heads", "q_heads"))
     if zigzag_ok:
-        ctx = _flash_attend_zigzag(q, k, v, positions, positions, cfg)
+        ctx = _flash_attend_zigzag(q, k_read, v_read, positions, positions,
+                                   cfg)
     elif use_flash:
-        ctx = _flash_attend(q, k, v, positions, positions, cfg, window)
+        # a rank's rows may not split into whole chunks of the full length
+        Lq = q.shape[1]
+        ctx = _flash_attend(q, k_read, v_read, q_pos, positions, cfg,
+                            window, None if rows is None
+                            else math.gcd(min(qc, Lq), Lq))
     else:
-        ctx = _naive_attend(q, k, v, positions, positions, cfg, window)
+        ctx = _naive_attend(q, k_read, v_read, q_pos, positions, cfg,
+                            window)
     out = _heads_sum(torch.einsum("blhd,hdo->blo", ctx,
                                   params.wo.to(x.dtype)), cfg)
+    if rows is not None:
+        # every rank's rows, in rank order: whole along L again
+        out = collectives.all_gather(out, "model", dim=1)
 
     if mode == "prefill":
         if cache_slice is None:

@@ -17,20 +17,25 @@ shard of the batch. A rank reads a parameter through ``_View``: the read
 is a collective (``collectives.reshard``) that turns the storage shards
 into the slice the rank's computation uses (``use_spec``) — the FSDP
 gather before use. That slice is the head, FFN-column or expert slice
-under the layers' parallel paths (``pspec.heads_tp``, ``model_divides(
-d_ff)``, ``moe_ep``), the vocabulary slice of the embedding and head,
-and the whole tensor elsewhere (norms, the SSM blocks, a dense MoE).
+under the layers' parallel paths (``pspec.attn_layout``: the query and
+key/value heads under ``heads``, the query heads under ``q_heads``,
+nothing under ``sequence``; ``model_divides(d_ff)``, ``moe_ep``), the
+vocabulary slice of the embedding and head, and the whole tensor
+elsewhere (norms, the SSM blocks, a dense MoE).
 The layers add their sums over ``model``; the loss is the global batch's
 (sums over the data-parallel ranks in rank order); the backward of every
 read gives each replica of a shard the same sum of its gradient over the
 ranks that used it, so AdamW updates each shard where it lives and the
 replicas stay bit-identical. A decode cache whose storage layout differs
-from the layout the step computes in is resharded around the step.
+from the layout the step computes in is resharded around the step, inside
+each rank's program (so a dry run walks it).
 
-Remat is off under a mesh (``transformer._maybe_remat``). Capacity-bound
-MoE routing is per data shard under expert parallelism, as the
-reference's; a placed MoE run equals an unplaced one on each data
-shard's batch.
+Block remat runs under a mesh as unplaced (``transformer._maybe_remat``,
+``collectives.remat``): a block's saved activations are dropped in the
+forward pass and every rank's block is recomputed together in the
+backward, with the same bits. Capacity-bound MoE routing is per data
+shard under expert parallelism, as the reference's; a placed MoE run
+equals an unplaced one on each data shard's batch.
 """
 from __future__ import annotations
 
@@ -70,17 +75,19 @@ def use_spec(name: str, shape: Sequence[int], cfg: ModelConfig, mesh: Mesh,
     leaf, nd = name.rsplit(".", 1)[-1], len(shape)
     full = (None,) * nd
     vocab = pspec.model_divides(cfg.padded_vocab, mesh)
-    heads = pspec.heads_tp(cfg, mesh)
     if leaf == "embed":
         return ("model", None) if vocab else full
     if leaf == "lm_head":
         return (None, "model") if vocab else full
-    if leaf in ("wq", "wk", "wv"):
-        return (None, "model", None) if heads else full
-    if leaf in ("bq", "bk", "bv"):
-        return ("model", None) if heads else full
-    if leaf == "wo":
-        return ("model", None, None) if heads else full
+    if leaf in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
+        layout = pspec.attn_layout(cfg, mesh)
+        split = layout == "heads" or (layout == "q_heads"
+                                      and leaf in ("wq", "wo", "bq"))
+        if not split:
+            return full
+        return {"wo": ("model", None, None), "bq": ("model", None),
+                "bk": ("model", None), "bv": ("model", None)}.get(
+                    leaf, (None, "model", None))
     if leaf in ("w_gate", "w_up", "w_down") and nd == 3:  # experts
         ep = pspec.moe_ep(cfg, mesh, batch_sharded)
         return ("model", None, None) if ep else full
@@ -430,16 +437,36 @@ def cache_layout(cfg: ModelConfig, mesh: Mesh, batch: int, s_cache: int
 def compute_layout(cfg: ModelConfig, mesh: Mesh, shapes, batch: int,
                    sharded: bool):
     """The specs a rank's step keeps the caches in: its batch shard (when
-    the batch is split) and, under head parallelism, its key/value
-    heads."""
+    the batch is split) and, under the ``heads`` layout, its key/value
+    heads (whole under ``q_heads`` and ``sequence``)."""
     b = _bspec(mesh, batch) if sharded else None
 
     def spec(name, shape):
-        if name in ("k", "v") and pspec.heads_tp(cfg, mesh):
+        if name in ("k", "v") and pspec.attn_layout(cfg, mesh) == "heads":
             return (b, None, "model", None)
         return (b,) + (None,) * (len(shape) - 1)
 
     return _tree_map(spec, _leaf_names(shapes), shapes)
+
+
+def reshard_caches(tree: Any, shapes, src, dst) -> Any:
+    """This rank's cache tree from the layout of spec tree ``src`` to
+    ``dst``: a collective (``collectives.reshard``) per leaf whose specs
+    differ, the leaf itself elsewhere."""
+    return _tree_map(lambda x, shape, s, d: x if s == d else
+                     collectives.reshard(x, shape, s, d, "cache"),
+                     tree, shapes, src, dst)
+
+
+def serve_rank(run, view, b: Dict[str, torch.Tensor], caches: Any, shapes,
+               specs, compute) -> Tuple[torch.Tensor, Any]:
+    """One rank's serving step: its ``caches`` (None for a prefill) from
+    the storage specs to the ``compute`` specs, ``run(view, b, caches)``,
+    and the caches it returns back to the storage specs."""
+    if caches is not None:
+        caches = reshard_caches(caches, shapes, specs, compute)
+    logits, caches = run(view, b, caches)
+    return logits, reshard_caches(caches, shapes, compute, specs)
 
 
 def _reshard_tree(shards: List[Any], shapes, src, dst, mesh: Mesh
@@ -481,15 +508,15 @@ def _serve(placed: Placed, batch: Dict[str, Any], pc: Optional[PlacedCaches],
     B = next(iter(v for v in batch.values() if v is not None)).shape[0]
     specs, shapes = cache_layout(cfg, mesh, B, s_cache)
     compute = compute_layout(cfg, mesh, shapes, B, sharded)
-    caches = [None] * mesh.size if pc is None else _reshard_tree(
-        pc.shards, shapes, pc.specs, compute, mesh)
     outs = collectives.spmd(
-        mesh, run, [(placed.view(r), shards[r], caches[r])
-                    for r in range(mesh.size)], batch_sharded=sharded)
+        mesh, lambda r: serve_rank(
+            run, placed.view(r), shards[r],
+            None if pc is None else pc.shards[r], shapes, specs, compute),
+        [(r,) for r in range(mesh.size)], batch_sharded=sharded)
     logits = torch.cat([outs[r][0].to(mesh.devices[0])
                         for r in _canonical(mesh, sharded)])
-    new = _reshard_tree([o[1] for o in outs], shapes, compute, specs, mesh)
-    return logits, PlacedCaches(mesh, B, s_cache, specs, shapes, new)
+    return logits, PlacedCaches(mesh, B, s_cache, specs, shapes,
+                                [o[1] for o in outs])
 
 
 def prefill(placed: Placed, batch: Dict[str, Any], s_cache: int

@@ -8,8 +8,8 @@ explicitly: ``models.placement`` runs the model once per rank of a
 on its shard of the batch and the slice of each parameter its layout
 needs (``models.collectives`` does the exchanges). This module is that
 ambient rank: ``current_mesh``, and ``dp_axes``, ``model_divides`` and
-``constrain`` as the reference has them, plus the two conditions the
-port's layers take their parallel paths on (``heads_tp``, ``moe_ep``).
+``constrain`` as the reference has them, plus the two choices the port's
+layers take their parallel paths on (``attn_layout``, ``moe_ep``).
 
 With no ambient rank (every path outside ``models.placement``) every
 function is the identity or False, so those paths are unchanged.
@@ -87,12 +87,27 @@ def model_divides(n: int, mesh: Optional[Mesh] = None) -> bool:
             and n % mesh.shape["model"] == 0)
 
 
-def heads_tp(cfg: ModelConfig, mesh: Optional[Mesh] = None) -> bool:
-    """Attention is head-parallel over ``model``: both the query and the
-    key/value heads divide it (otherwise every ``model`` rank computes
-    all heads; the reference shards the query's sequence instead)."""
-    return (model_divides(cfg.num_heads, mesh)
-            and model_divides(cfg.num_kv_heads, mesh))
+def attn_layout(cfg: ModelConfig, mesh: Optional[Mesh] = None
+                ) -> Optional[str]:
+    """How attention lays out over ``model``, as the reference's
+    ``attention`` chooses (None with no mesh):
+
+    - ``"heads"``: ``model`` divides the query and the key/value heads;
+      each rank projects and attends its slice of both.
+    - ``"q_heads"``: it divides the query heads only; each rank projects
+      its query heads, and the key/value heads whole (replicated).
+    - ``"sequence"``: it does not divide the query heads; each rank
+      attends its L/model query rows against the whole key/value, the
+      attention weights whole (sequence-parallel attention).
+
+    A mesh without a ``model`` axis takes ``"sequence"`` over a group of
+    one, as the reference does (its zigzag stays off there too)."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return None
+    if not model_divides(cfg.num_heads, mesh):
+        return "sequence"
+    return "heads" if model_divides(cfg.num_kv_heads, mesh) else "q_heads"
 
 
 def moe_ep(cfg: ModelConfig, mesh: Optional[Mesh] = None,

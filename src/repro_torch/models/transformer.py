@@ -29,10 +29,11 @@ Under a mesh (``models.placement`` runs one thread per rank, each with
 ``models.pspec``'s ambient rank) the same code runs per rank on its shard
 of the batch: the embedding table and the head are vocab-parallel over
 ``model`` (a masked lookup summed over ``model``; logits gathered over
-``model``), attention and the MLP are head- and column/row-parallel, and
-the MoE is expert-parallel (``layers.moe``). Remat is off under a
-multi-threaded mesh (the recompute would repeat collectives after the
-ranks have finished).
+``model``), attention takes the reference's layout over ``model``
+(``layers.attention``: heads, query heads or query rows), the MLP is
+column/row-parallel, and the MoE is expert-parallel (``layers.moe``).
+Block remat recomputes every rank's block together
+(``collectives.remat``).
 
 Parameters are float32 masters cast to the compute dtype at every use;
 norms, RoPE, the softmax, the MoE router, the SSD scan and the logits
@@ -147,15 +148,19 @@ def init_caches(cfg: ModelConfig, batch: int, s_cache: int, device
 def _maybe_remat(fn, cfg: ModelConfig, mode: str):
     """Block rematerialization: under ``remat="block"`` in train mode with
     autograd recording, ``fn``'s activations are recomputed in the
-    backward pass instead of kept (``torch.utils.checkpoint``, the
-    reference's ``jax.checkpoint``). The values and gradients are the
-    same bits either way. Off under a mesh whose collectives cannot run
-    again in the backward pass (the threads of ``collectives.spmd``)."""
+    backward pass instead of kept (the reference's ``jax.checkpoint``):
+    torch's checkpoint unplaced and alone (``collectives.solo``), every
+    rank's block together in a ``collectives.spmd`` run
+    (``collectives.remat``). The values and gradients are the same bits
+    either way."""
+    if not (cfg.remat == "block" and mode == "train"
+            and torch.is_grad_enabled()):
+        return fn
     rank = pspec.current()
-    if cfg.remat == "block" and mode == "train" and torch.is_grad_enabled() \
-            and (rank is None or rank.rendezvous.replayable):
-        return functools.partial(checkpoint, fn, use_reentrant=False)
-    return fn
+    if rank is not None and isinstance(rank.rendezvous,
+                                       collectives.Rendezvous):
+        return collectives.remat(fn)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 def _run_stack(params: Transformer, h: torch.Tensor, positions: torch.Tensor,
