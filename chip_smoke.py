@@ -7,7 +7,8 @@ Phases (any failure raises and exits non-zero):
 
 1. build — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
-2. kernels — each kernel (qboundary, qgemm, qtopk, qcoarse) against its
+2. kernels — each kernel (qboundary, qgemm, qtopk, qcoarse, and qhnsw's
+   search and insert) against its
    plain PyTorch version on the card, bitwise, at the main path's shapes
    and at edge shapes (qboundary also at odd widths, at d = 40000 on its
    looped form, one float past 16-byte alignment and on rows whose sum of
@@ -31,7 +32,14 @@ Phases (any failure raises and exits non-zero):
    Q32.32, d = 8200) equals the CPU's, and at k > capacity (1030 / 1040,
    2100 / 3000) it returns the CPU default route's shape and values;
    qgemm, qcoarse and qtopk (k = 10 and 256) are also checked and timed at
-   one shard's shape (phase 6's: 32768 rows). The build step prints ptxas
+   one shard's shape (phase 6's: 32768 rows); qhnsw_insert links one run
+   of 512 stored rows into 1536 linked ones (1 % deleted) at d = 2304 over
+   the 131072-row arena, in its fast and default variants, and re-links
+   the result in both, and qhnsw_search answers 64 queries (k = 10, ef =
+   64) on it, flat and over 4 shards of the same rows in one launch, each
+   equal to the plain version (the host-driven beams) bit for bit and
+   timed beside it, with a bound from the rows the beams need. The build
+   step prints ptxas
    registers and spills per
    kernel and the integer tensor-core (IMMA/IGMMA) and IDP4A instruction
    counts of each library (``cuobjdump -sass``);
@@ -54,7 +62,14 @@ Phases (any failure raises and exits non-zero):
    ``admit_query``). Then the refreshed
    table equals ``codes.build`` of the state and ``replay_log_fresh() ==
    state_hash()`` (its routes against the CPU's on a copy of the state
-   are cut to keep the run inside its time, as are phase 6's);
+   are cut to keep the run inside its time, as are phase 6's); one HNSW
+   batch on the card equals the plain version on a CPU copy of the state
+   it read; at the default documents and seed, ``state_hash`` and
+   ``memory_hash`` (and phase 6's reference record) must equal the values
+   the host-driven graph gave (``PINNED``), as must phase 5's crashed
+   engine, phase 6's memory and first HNSW reads and phase 7's wire HNSW
+   read. Each phase that builds or reads the graph fails unless
+   qhnsw_insert / qhnsw_search launched on its path;
 4. golden — the hashes the JAX reference wrote at d = 2304
    (``tests/fixtures/torch_port_golden.json``, code table and coarse
    routes included) reproduce on the card; the reference's golden v1 and
@@ -253,7 +268,7 @@ Phases (any failure raises and exits non-zero):
    beside their count when every model rank computed every head (4.936e14,
    before the reference's attention layouts were ported). Phases 11-13
    launch none
-   of the four kernels; their counts are read and printed.
+   of the kernels; their counts are read and printed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs the repository's ``src/``
@@ -296,6 +311,15 @@ K = 10
 EF = 64
 EF_COARSE = 256
 EF_COVER = 8192
+EF_CONSTRUCTION = 32  # the engine's inserts (machine's default)
+# the values the host-driven graph (the qhnsw plain version) gave at the
+# default documents and seed 0; the kernels must land on them
+PINNED = {"state_hash": 0x283af3b3ad85ec3f, "memory_hash": 0x7bb94cd8a645b90f,
+          "shard_memory": 0xb65355a8a26e7781,
+          "sharded_hnsw": 0x27ba45fe03b2ab28,
+          "replay_hnsw": 0x84d8077e1811c69e,
+          "durable": (1546, 0x54e14c1a3a5ed183)}
+QHNSW_ROWS = 1536     # phase 2's hold: rows linked before its insert run
 EXACT_BATCHES = 50
 HNSW_BATCHES = 10
 COARSE_BATCHES = 50
@@ -449,8 +473,20 @@ REPLACES = {
     "qgemm": "src/repro/kernels/qgemm/kernel.py:39",
     "qtopk": "src/repro/kernels/qtopk/kernel.py:30",
     "qcoarse": "src/repro/kernels/qcoarse/kernel.py:41",
+    # no Pallas kernel: the reference's jnp under jit
+    "qhnsw_search": "none (jnp under jit): src/repro/core/hnsw.py:711 "
+                    "hnsw_search, vmapped at src/repro/core/query.py:52",
+    "qhnsw_insert": "none (jnp under jit): src/repro/core/hnsw.py:421 "
+                    "hnsw_insert, scanned at src/repro/core/machine.py:246 "
+                    "and src/repro/core/hnsw.py:656",
 }
+SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
+           for name in ("qboundary", "qgemm", "qtopk", "qcoarse")}
+SOURCES.update(qhnsw_search="src/repro_torch/kernels/csrc/qhnsw.cu",
+               qhnsw_insert="src/repro_torch/kernels/csrc/qhnsw.cu")
+GRAPH_KERNELS = ("qhnsw_search", "qhnsw_insert")
 LM_KERNELS = ("qboundary", "qgemm", "qtopk")  # phase 8's path (exact route)
+LM_PATH = LM_KERNELS + ("qhnsw_insert",)  # the LM engines ingest: F's graph
 
 
 def log(msg: str) -> None:
@@ -490,6 +526,28 @@ def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def pin(name: str, got, held: bool) -> None:
+    """Hold a hash to its pinned value where ``held``: at the default
+    documents and seed, which made it, and the module's shapes."""
+    held = held and (DIM, CAPACITY, BATCH, SHARDS) == (2304, 131072, 512, 4)
+    if held and got != PINNED[name]:
+        raise AssertionError(f"{name}: {got!r} != the pinned {PINNED[name]!r}")
+    return held
+
+
+def phase_counts(kernels) -> dict:
+    """Every kernel's launches since the last reset: the four TPU kernels'
+    and qhnsw's two (the graph's search and insert)."""
+    return {**kernels.launch_counts(), **kernels.graph_launch_counts()}
+
+
+def require(counts: dict, names, what: str) -> None:
+    """Fail unless each named kernel launched on a phase's path."""
+    missing = [name for name in names if counts.get(name, 0) < 1]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched: {counts}")
 
 
 # --------------------------------------------------------------------------- #
@@ -1041,6 +1099,170 @@ def check_qcoarse(torch, dev, rng):
                 shape=f"[{nq}, {d}] i32 x [{nn}, {d}] i8 -> i64", **shard)
 
 
+class NeededRows:
+    """While the plain HNSW version runs: the rows whose distances each
+    beam needs (its prefetches left out), per beam (a query, or one insert
+    with all its levels) and over all beams — the work a bound counts."""
+
+    def __init__(self, ref):
+        self.ref, self.sets, self.keep = ref, {}, []
+
+    def __enter__(self):
+        orig = self.orig = self.ref._dists
+        sets, keep = self.sets, self.keep
+
+        def counting(cache, slots, ok, prefetch=None):
+            if id(cache) not in sets:
+                keep.append(cache)  # no reuse of its id while counting
+            sets.setdefault(id(cache), set()).update(slots[ok].tolist())
+            return (yield from orig(cache, slots, ok, prefetch))
+
+        self.ref._dists = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.ref._dists = self.orig
+
+    def per_beam(self) -> int:
+        return sum(len(s) for s in self.sets.values())
+
+    def union(self) -> int:
+        return len(set().union(*self.sets.values())) if self.sets else 0
+
+
+def hnsw_bound(need, row_bytes: int, extra_bytes: int):
+    """Least time for a beam's work: each needed row read once (plus the
+    queries or new rows and the outputs), and 3 int64 operations per
+    element of each needed distance at the card's CUDA-core float32 rate
+    (int64 multiply-adds run slower, so this stays a lower bound)."""
+    return bound_ms(need.union() * row_bytes + extra_bytes,
+                    3.0 * DIM * need.per_beam(), F32_OPS_PER_S)
+
+
+def check_qhnsw(torch, dev, rng):
+    """qhnsw_insert and qhnsw_search bit for bit against their plain
+    versions on the card, at phase 3's width over its arena: 1536 rows
+    linked, 1 % deleted, then one run of 512 stored rows linked (fast and
+    default variants) and a re-link of the result (both variants); 64
+    queries (k = 10, ef = 64) on it, flat and over 4 shards of the same
+    rows in one launch. Times: CUDA events for the kernels, the host clock
+    for the plain versions (host-driven beams with their distances on the
+    card)."""
+    import dataclasses as dc
+    from repro_torch.core import (boundary, commands, distributed, hnsw,
+                                  machine, shard_wal)
+    from repro_torch.core.state import init_state
+    from repro_torch.kernels.qhnsw import ops, ref
+    acc_i = dict(max_abs_err=0, mismatches=0)
+    acc_s = dict(max_abs_err=0, mismatches=0)
+    n, run = QHNSW_ROWS, BATCH
+    raw = boundary.normalize_embedding(torch.from_numpy(
+        rng.normal(size=(n + run, DIM)).astype(np.float32)).to(dev))
+    ids = torch.arange(n + run, device=dev)
+    dead = torch.from_numpy(rng.choice(n, n // 100, replace=False)).to(dev)
+    base = machine.bulk_apply(init_state(CAPACITY, DIM, device=dev),
+                              commands.insert_batch(ids[:n], raw[:n]))
+    base = machine.bulk_apply(base, commands.delete_batch(dead, DIM))
+    # the run's rows stored but not linked, as _apply_insert_segment
+    # leaves them before its inserts
+    slots = torch.nonzero(~base.valid).reshape(-1)[:run]
+    vectors, sids, valid = (base.vectors.clone(), base.ids.clone(),
+                            base.valid.clone())
+    vectors[slots], sids[slots], valid[slots] = raw[n:], ids[n:], True
+    stored = dc.replace(base, vectors=vectors, ids=sids, valid=valid)
+    slots = slots.to(torch.int32)[None]
+
+    def graph(st):
+        return st.hnsw_neighbors, st.hnsw_levels, st.hnsw_entry
+
+    def plain(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    ins = {}
+    for fast in (True, False):
+        with NeededRows(ref) as need:
+            want, plain_ms = plain(lambda: ref.insert_ref(
+                stored, slots, run, EF_CONSTRUCTION, fast))
+
+        def launch():
+            return ops.qhnsw_insert(stored, slots, run, fast=fast,
+                                    ef_construction=EF_CONSTRUCTION)
+
+        got = launch()
+        compare(torch, graph(got), graph(want), acc_i)
+        b, by = hnsw_bound(need, DIM * 4, run * DIM * 4)
+        ins["fast" if fast else "default"] = dict(
+            ms=cuda_ms(torch, launch, 1, warmup=0), plain_ms=plain_ms,
+            bound_ms=b, bound_by=by)
+        if fast:
+            linked = got
+    blank, order, n_real = hnsw.rebuild_plan(linked)
+    relink = {}
+    for fast in (True, False):
+        want, plain_ms = plain(lambda: ref.insert_ref(
+            blank, torch.from_numpy(order), n_real, EF_CONSTRUCTION, fast))
+        got = hnsw.rebuild(linked, EF_CONSTRUCTION, fast)
+        compare(torch, graph(got), graph(want), acc_i)
+        relink["fast" if fast else "default"] = dict(
+            ms=cuda_ms(torch, lambda: hnsw.rebuild(linked, EF_CONSTRUCTION,
+                                                   fast), 1, warmup=0),
+            plain_ms=plain_ms, rows=n_real)
+
+    q = boundary.admit_query(torch.from_numpy(rng.normal(
+        size=(QUERIES, DIM)).astype(np.float32)).to(dev))
+    with NeededRows(ref) as need:
+        want, plain_ms = plain(lambda: ref.search_ref(linked, q, K, EF))
+    compare(torch, ops.qhnsw_search(linked, q, K, EF), want, acc_s)
+    ms = cuda_ms(torch, lambda: ops.qhnsw_search(linked, q, K, EF), 10)
+    b, by = hnsw_bound(need, DIM * 4, QUERIES * DIM * 4 + QUERIES * K * 20)
+    # the same rows over 4 shards, all shards in one launch
+    sh = distributed.init_sharded_host(SHARDS, SHARD_ROWS, DIM, device=dev)
+    sh = shard_wal.bulk_apply_sharded(sh, commands.insert_batch(ids, raw),
+                                      SHARDS)
+    sh = shard_wal.bulk_apply_sharded(sh, commands.delete_batch(dead, DIM),
+                                      SHARDS)
+    stacked = shard_wal.shard_stack(sh, SHARDS)
+    with NeededRows(ref) as need_sh:
+        want, plain_sh = plain(lambda: ref.search_ref(stacked, q, K, EF))
+    compare(torch, ops.qhnsw_search(stacked, q, K, EF), want, acc_s)
+    ms_sh = cuda_ms(torch, lambda: ops.qhnsw_search(stacked, q, K, EF), 10)
+    b_sh, by_sh = hnsw_bound(need_sh, DIM * 4,
+                             QUERIES * DIM * 4 + SHARDS * QUERIES * K * 20)
+    live = int(linked.valid.sum())
+    search = dict(acc_s, ms=ms, plain_ms=plain_ms, library_ms=None,
+                  bound_ms=b, bound_by=by, ms_sharded=ms_sh,
+                  plain_ms_sharded=plain_sh, bound_ms_sharded=b_sh,
+                  bound_by_sharded=by_sh,
+                  shape=f"{QUERIES} queries, k={K}, ef={EF}, {live} live of "
+                  f"{CAPACITY} rows, d={DIM}; sharded {SHARDS} x "
+                  f"{SHARD_ROWS}")
+    insert = dict(acc_i, **ins["fast"], library_ms=None,
+                  ms_default=ins["default"]["ms"],
+                  plain_ms_default=ins["default"]["plain_ms"],
+                  relink=relink,
+                  shape=f"one run of {run} stored rows into {n - n // 100} "
+                  f"linked ({CAPACITY} rows, d={DIM}, ef_construction="
+                  f"{EF_CONSTRUCTION}); re-link of {relink['fast']['rows']}")
+    return search, insert
+
+
+def report_qhnsw(search, insert) -> None:
+    log(f"[kernel] qhnsw_search over {SHARDS} shards in one launch: "
+        f"{search['ms_sharded']:.4f} ms (plain {search['plain_ms_sharded']:.1f}"
+        f" ms, bound {search['bound_ms_sharded']:.4f} ms by "
+        f"{search['bound_by_sharded']}) ({CARD[0]})")
+    log(f"[kernel] qhnsw_insert default variant: {insert['ms_default']:.1f} "
+        f"ms (plain {insert['plain_ms_default']:.1f} ms) ({CARD[0]})")
+    for variant, r in insert["relink"].items():
+        log(f"[kernel] qhnsw_insert re-link of {r['rows']} rows, {variant}: "
+            f"{r['ms']:.1f} ms (plain {r['plain_ms']:.1f} ms), equal bit for "
+            f"bit ({CARD[0]})")
+
+
 def load_test_module(name: str):
     """A helper module of the tests (``tests/<name>.py``), loaded by path."""
     spec = importlib.util.spec_from_file_location(
@@ -1191,6 +1413,7 @@ def run_engine(torch, dev, n_docs: int, seed: int):
         capacity=CAPACITY, retrieve_k=K, ef=EF, ef_coarse=EF_COARSE),
         device=dev)
     batches, queries, rng = engine_inputs(n_docs, seed)
+    held = n_docs == SHARD_DOCS and seed == 0  # the pinned run
     routes = ("exact", "hnsw", "coarse")
     n_batches = {"exact": EXACT_BATCHES, "hnsw": HNSW_BATCHES,
                  "coarse": COARSE_BATCHES}
@@ -1204,7 +1427,7 @@ def run_engine(torch, dev, n_docs: int, seed: int):
             flat_ref = flat_conformance(torch, kernels, eng, queries[0])
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0 - flat_ref["s"]
-    boundary_ingest = (kernels.launch_counts()["qboundary"]
+    boundary_ingest = (phase_counts(kernels)["qboundary"]
                        - flat_ref["launches"]["qboundary"])
     n_docs = eng.live_count()
     dead = rng.choice(n_docs, size=n_docs // 100, replace=False)
@@ -1226,6 +1449,7 @@ def run_engine(torch, dev, n_docs: int, seed: int):
             ids, scores = eng.retrieve(q)
             times[route].append((time.perf_counter() - t0) * 1e3)
             answers[route].append((ids, scores))
+    hnsw_state = eng.memory  # the state the HNSW route read
     # full coverage: ef_coarse >= live rows
     live = eng.live_count()
     eng.sc.ef_coarse = max(EF_COVER, live)
@@ -1235,16 +1459,16 @@ def run_engine(torch, dev, n_docs: int, seed: int):
     eng.sc.ef_coarse = EF_COARSE
     # one more insert batch refreshes the maintained table
     extra = rng.normal(size=(BATCH, DIM)).astype(np.float32)
-    before = kernels.launch_counts()["qboundary"]
+    before = phase_counts(kernels)["qboundary"]
     t0 = time.perf_counter()
     eng.insert_documents(extra)
     torch.cuda.synchronize()
     refresh_s = time.perf_counter() - t0
-    boundary_ingest += kernels.launch_counts()["qboundary"] - before
+    boundary_ingest += phase_counts(kernels)["qboundary"] - before
     t0 = time.perf_counter()
     refreshed = eng.retrieve(queries[0])
     refreshed_ms = (time.perf_counter() - t0) * 1e3
-    counts = kernels.launch_counts()  # ---- the main path ends here ----
+    counts = phase_counts(kernels)  # ---- the main path ends here ----
     # phase 6's reference record is not the main path's
     counts = {k: v - flat_ref["launches"][k] for k, v in counts.items()}
     flat_ref["ingest_docs_s"] = n_docs / ingest_s
@@ -1273,8 +1497,7 @@ def run_engine(torch, dev, n_docs: int, seed: int):
     for route, stages in stage_breakdown(torch, eng, queries[1]).items():
         log(f"[engine] one warm {route} batch by stage (CUDA events, ms): "
             + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    require(counts, list(counts), "phase 3's main path")
     for route in ("hnsw", "coarse"):
         overlap = np.mean([len(set(a[0][i]) & set(b[0][i])) / K
                            for a, b in zip(answers["exact"], answers[route])
@@ -1317,8 +1540,31 @@ def run_engine(torch, dev, n_docs: int, seed: int):
     if query.retrieval_hash(*eng.retrieve(queries[0])) \
             != query.retrieval_hash(*refreshed):
         raise AssertionError("coarse route: two reads of one state differ")
-    log(f"[engine] memory_hash {eng.memory_hash():#018x}")
+    h_mem = eng.memory_hash()
+    log(f"[engine] memory_hash {h_mem:#018x}")
+    if all([pin("state_hash", h_state, held),
+            pin("memory_hash", h_mem, held),
+            pin("shard_memory", flat_ref["memory_hash"], seed == 0)]):
+        log("[engine] state_hash, memory_hash and phase 6's reference "
+            "memory_hash equal the pinned values")
+    check_hnsw_on_cpu(torch, dev, hnsw_state, queries[0])
     return counts, eng, flat_ref
+
+
+def check_hnsw_on_cpu(torch, dev, state, queries) -> None:
+    """One HNSW batch on the card (qhnsw_search) and on a CPU copy of the
+    same state (the plain version): equal ids, distances and slots."""
+    from repro_torch.core import boundary, query
+    q = boundary.admit_query(torch.from_numpy(queries).to(dev))
+    t0 = time.perf_counter()
+    card = query.batched_hnsw_search(state, q, K, ef=EF)
+    cpu = query.batched_hnsw_search(state.to("cpu"), q.cpu(), K, ef=EF)
+    for a, b in zip(card, cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("the HNSW route on the card != on the CPU")
+    log(f"[engine] one HNSW batch on the card equals the plain version on "
+        f"a CPU copy of the state: ids, distances and slots "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def engine_inputs(n_docs: int, seed: int):
@@ -1336,7 +1582,7 @@ def engine_inputs(n_docs: int, seed: int):
 def flat_conformance(torch, kernels, eng, queries) -> dict:
     """The flat engine's ``memory_hash`` and exact-route ``retrieval_hash``
     of ``queries`` now, with the time and kernel launches this took."""
-    before = kernels.launch_counts()
+    before = phase_counts(kernels)
     t0 = time.perf_counter()
     route, eng.sc.route = eng.sc.route, "exact"
     rec = dict(memory_hash=eng.memory_hash(),
@@ -1344,7 +1590,7 @@ def flat_conformance(torch, kernels, eng, queries) -> dict:
     eng.sc.route = route
     torch.cuda.synchronize()
     rec["s"] = time.perf_counter() - t0
-    after = kernels.launch_counts()
+    after = phase_counts(kernels)
     rec["launches"] = {k: after[k] - before[k] for k in after}
     return rec
 
@@ -1512,6 +1758,7 @@ def run_durable(torch, dev, seed: int) -> dict:
               lambda: eng.insert_documents(batches[DURABLE_BATCHES]))
         before = hashes(eng)
         t_end = eng.flush()
+        pin("durable", (t_end, before["state"]), seed == 0)
         log_end = eng.log
         n_wal = wal_bytes(store)
         eng.close()
@@ -1528,7 +1775,7 @@ def run_durable(torch, dev, seed: int) -> dict:
             raise AssertionError("recover on the card != the crashed engine")
         if timed("replay_log_fresh", b.replay_log_fresh) != before["state"]:
             raise AssertionError("replay_log_fresh() != state_hash()")
-        counts = kernels.launch_counts()  # ---- the durable path ends here ----
+        counts = phase_counts(kernels)  # ---- the durable path ends here ----
         del b
 
         # a torn tail, over SIDE_CAPACITY rows: a checkpoint, one more
@@ -1687,9 +1934,9 @@ def report_durable(r) -> None:
     log(f"[durable] JAX-written interop fixture recovered on the card: "
         f"t={t} {h}, {n} restore_at hashes reproduced")
     log(f"[durable] kernel launches on the durable path: {r['counts']}")
-    if min(r["counts"].values()) < 1:
-        raise AssertionError(
-            f"a kernel of the durable path never launched: {r['counts']}")
+    # no HNSW read on this path: its reads are exact and coarse
+    require(r["counts"], [k for k in r["counts"] if k != "qhnsw_search"],
+            "the durable path")
 
 
 # --------------------------------------------------------------------------- #
@@ -1830,9 +2077,8 @@ def run_sharded(torch, dev, seed: int, flat_ref: dict) -> dict:
             t0 = time.perf_counter()
             answers[route].append(eng.retrieve(q))
             read_ms[route].append((time.perf_counter() - t0) * 1e3)
-    counts = kernels.launch_counts()  # ---- the phase's main path ends ----
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a kernel of phase 6 never launched: {counts}")
+    counts = phase_counts(kernels)  # ---- the phase's main path ends ----
+    require(counts, list(counts), "phase 6's main path")
     for route in n_batches:
         for ids, scores in answers[route]:
             if ids.shape != (QUERIES, K) or (ids < 0).any() \
@@ -1866,6 +2112,9 @@ def run_sharded(torch, dev, seed: int, flat_ref: dict) -> dict:
     # inside its time)
     card = {route: query.retrieval_hash(*answers[route][0])
             for route in n_batches}
+    pin("shard_memory", conf["memory_hash"], seed == 0)
+    pin("sharded_hnsw", card["hnsw"], seed == 0)
+    pin("replay_hnsw", hnsw_replay, seed == 0)
     out.update(conf=conf, card=card, h_state=h_state, removed=removed,
                hnsw_replay=hnsw_replay,
                n_docs=n_docs, live=live.tolist(), read_ms=read_ms,
@@ -2158,6 +2407,7 @@ def run_network(torch, dev, seed: int, flat_ref: dict, sharded: dict
         if h_wire["hnsw"] != sharded["hnsw_replay"]:
             raise AssertionError("wire hnsw != phase 6's read before its "
                                  "re-link")
+        pin("replay_hnsw", h_wire["hnsw"], seed == 0)
         live = distributed.shard_live_counts(eng.memory, SHARDS)
         eng.sc.route, eng.sc.ef_coarse = "coarse", int(live.max())
         cover = timed("coarse read at full coverage over the wire",
@@ -2179,10 +2429,8 @@ def run_network(torch, dev, seed: int, flat_ref: dict, sharded: dict
                 if q is queries[0] and query.retrieval_hash(*ans) \
                         != h_wire[route]:
                     raise AssertionError(f"replica {route} != wire read")
-        counts = kernels.launch_counts()  # ---- the main path ends ----
-        if min(counts.values()) < 1:
-            raise AssertionError(f"a kernel of phase 7 never launched: "
-                                 f"{counts}")
+        counts = phase_counts(kernels)  # ---- the main path ends ----
+        require(counts, list(counts), "phase 7's main path")
         if any(rep.follow_error is not None for pool in eng.read_replicas
                for rep in pool):
             raise AssertionError("a follower stopped")
@@ -2629,11 +2877,9 @@ def run_lm(torch, dev, seed: int, cfg=None) -> dict:
         gens.append(eng.generate(gen_prompts))
         torch.cuda.synchronize()
         gen_s.append(time.perf_counter() - t0)
-    counts = kernels.launch_counts()  # ---- the main path ends here ----
+    counts = phase_counts(kernels)  # ---- the main path ends here ----
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    if min(counts[name] for name in LM_KERNELS) < 1:
-        raise AssertionError(f"a kernel of the LM path never launched: "
-                             f"{counts}")
+    require(counts, LM_PATH, "the LM path")
     if out["plan"].route != "exact":
         raise AssertionError(f"auto route at {LM_DOCS} rows: "
                              f"{out['plan'].route}, not exact")
@@ -2935,11 +3181,9 @@ def run_family(torch, dev, seed: int, arch: str, cfg=None) -> dict:
         gens.append(eng.generate(gen_prompts))
         torch.cuda.synchronize()
         gen_s.append(time.perf_counter() - t0)
-    counts = kernels.launch_counts()  # ---- the main path ends here ----
+    counts = phase_counts(kernels)  # ---- the main path ends here ----
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    if min(counts[name] for name in LM_KERNELS) < 1:
-        raise AssertionError(f"{cfg.name}: a kernel of the path never "
-                             f"launched: {counts}")
+    require(counts, LM_PATH, f"{cfg.name}'s path")
     if out["plan"].route != "exact":
         raise AssertionError(f"{cfg.name}: auto route at {FAMILY_DOCS} rows: "
                              f"{out['plan'].route}, not exact")
@@ -3326,7 +3570,7 @@ def train_coordinator(torch, dev, seed: int, cfg) -> dict:
             run["route"] = eng.last_plan.route
             run["memory_hash"] = eng.memory_hash()
             eng.close()
-        counts = kernels.launch_counts()  # the main path ends here
+        counts = phase_counts(kernels)  # the main path ends here
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     clean, restarted = (runs[k][0] for k in ("clean", "restarted"))
@@ -3338,9 +3582,7 @@ def train_coordinator(torch, dev, seed: int, cfg) -> dict:
         if restarted[key] != clean[key]:
             raise AssertionError(f"{cfg.name}: {key} differs between the "
                                  f"clean and the restarted weights")
-    if min(counts[name] for name in LM_KERNELS) < 1:
-        raise AssertionError(f"training phase: a kernel of the path never "
-                             f"launched: {counts}")
+    require(counts, LM_PATH, "the training phase's engines")
     return dict(cfg=cfg, clean=clean, restarted=restarted, counts=counts)
 
 
@@ -4323,6 +4565,10 @@ def main() -> int:
         "qtopk": check_qtopk(torch, dev, rng),
         "qcoarse": check_qcoarse(torch, dev, rng),
     }
+    t0 = time.perf_counter()
+    results["qhnsw_search"], results["qhnsw_insert"] = check_qhnsw(
+        torch, dev, rng)
+    log(f"[kernel] qhnsw holds in {time.perf_counter() - t0:.1f} s")
     for name, r in results.items():
         log(f"[kernel] {name} {r['shape']}: max_abs_err {r['max_abs_err']}, "
             f"mismatches {r['mismatches']}, "
@@ -4331,6 +4577,7 @@ def main() -> int:
             f" ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
         if r["max_abs_err"] != 0 or r["mismatches"] != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
+    report_qhnsw(results["qhnsw_search"], results["qhnsw_insert"])
     report_qboundary(results["qboundary"])
     routes, wide_ms = check_qboundary_contracts(torch, dev, rng)
     for case, route in routes.items():
@@ -4407,13 +4654,13 @@ def main() -> int:
     kernels.reset_launch_counts()  # ---- phase 11's main path starts ----
     for arch in EXT_ARCHS:
         report_external(run_external(torch, dev, args.seed, arch))
-    new_counts["external"] = kernels.launch_counts()
+    new_counts["external"] = phase_counts(kernels)
     log(f"[external] phase 11 in {time.perf_counter() - t0:.1f} s "
         f"({CARD[0]})")
 
     kernels.reset_launch_counts()  # ---- phase 12's main path starts ----
     md = run_multidevice(torch, dev, args.seed)
-    new_counts["multidevice"] = kernels.launch_counts()
+    new_counts["multidevice"] = phase_counts(kernels)
     report_multidevice(md)
     log(f"[multidevice] phase 12 in {md['s']:.1f} s ({CARD[0]})")
 
@@ -4422,13 +4669,12 @@ def main() -> int:
     roof = run_roofline(
         torch, statistics.median(tw[0]["ms"] + tw[1]["ms"]),
         lm["steps"]["decode_ms"], md["serve"]["runs"][1]["prefill_ms"])
-    new_counts["roofline"] = kernels.launch_counts()
+    new_counts["roofline"] = phase_counts(kernels)
     report_roofline(roof)
     log(f"[phases 11-13] kernel launches (none is on their path): "
         f"{new_counts}")
 
-    kern = [dict(name=name, route="cuda",
-                 source=f"src/repro_torch/kernels/csrc/{name}.cu",
+    kern = [dict(name=name, route="cuda", source=SOURCES[name],
                  replaces=REPLACES[name], launches=counts[name],
                  launches_durable=durable["counts"][name],
                  launches_sharded=sharded["counts"][name],
@@ -4445,9 +4691,10 @@ def main() -> int:
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
                  **{key: v for key, v in r.items()
-                    if key.endswith(("_at_ef_coarse", "_at_queries"))
+                    if key.endswith(("_at_ef_coarse", "_at_queries",
+                                     "_sharded", "_default"))
                     or "per_shard" in key
-                    or key in ("timing", "kernel_ms")})
+                    or key in ("timing", "kernel_ms", "relink")})
             for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kern}))

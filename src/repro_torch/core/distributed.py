@@ -42,6 +42,7 @@ from repro_torch.core.commands import FIELDS as LOG_FIELDS
 from repro_torch.core.commands import NOP, CommandLog, log_to_numpy
 from repro_torch.core.hnsw import splitmix64
 from repro_torch.core.state import MemoryState, init_state
+from repro_torch.kernels import qhnsw
 
 INF = search.INF
 
@@ -257,14 +258,23 @@ def distributed_hnsw_search(devices: Sequence, state: MemoryState,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ANN across shards: each shard's deterministic HNSW beam search on its
     device, candidates merged with the same integer sort as the flat
-    path. Returns (ids, dists)."""
-    from repro_torch.core import query as query_lib  # query imports us lazily
+    path. Where every shard is on one device, one launch of the qhnsw
+    search kernel answers every (query, shard) pair of the stacked view
+    (``shard_wal.shard_stack``). Returns (ids, dists)."""
+    from repro_torch.core import shard_wal  # shard_wal imports us
 
-    parts = []
-    for local in _placed(devices, state):
-        ids, dists, _ = query_lib.batched_hnsw_search(
-            local, queries_raw.to(local.device), k, ef=ef)
-        parts.append((ids, dists))
+    devs = [torch.device(d) for d in devices]
+    if all(d == devs[0] for d in devs):
+        stacked = shard_wal.shard_stack(state, len(devs)).to(devs[0])
+        ids, dists, _ = qhnsw.qhnsw_search(stacked, queries_raw.to(devs[0]),
+                                           k, ef)
+        parts = [(ids[s], dists[s]) for s in range(len(devs))]
+    else:
+        parts = []
+        for local in _placed(devices, state):
+            ids, dists, _ = qhnsw.qhnsw_search(
+                local, queries_raw.to(local.device), k, ef)
+            parts.append((ids, dists))
     return _gather_merge(devices, parts, k)
 
 

@@ -13,10 +13,22 @@ deterministic, every command advancing ``version`` (rejected ones too).
 * SET_META(id, slot, value): write a metadata word.
 
 The port runs F as host control flow over a ``WorkingState``: the vectors
-(cloned once per call, then written in place) stay on the state's device
-and all distances are computed there; ids, valid, links, meta and the
-graph are host mirrors for the duration of the call. Every public
-function returns a fresh MemoryState and leaves its input untouched.
+(cloned once per call, then written in place) stay on the state's device;
+ids, valid, links and meta are host mirrors for the duration of the call.
+On the card the graph stays there too: the fresh inserts of F queue up and
+one launch of the qhnsw insert kernel links each run of them
+(``hnsw.link_pending``), the reference's scan of ``hnsw_insert``. A run
+ends before any command that would change what its inserts read: a
+DELETE (the valid mask, the entry), an upsert (a stored row), a fresh
+insert into a slot that once held a graph node (its stale inbound edges
+make it visible), or another kind of insert. Rows written ahead of their
+insert are invisible to the graph until then (no edge names them), so a
+run links exactly the graph sequential F would. The appliers are
+generators that yield where a run must end; ``_run`` drives them and
+links, for several shards' working states at once with one launch per
+round. On the host the graph is a numpy mirror, inserts link at once and
+nothing is ever pending. Every public function returns a fresh
+MemoryState and leaves its input untouched.
 
 ``bulk_apply`` is the batched ingest path (DESIGN.md §3): the host
 segments the log by opcode while mirroring F's slot allocator, applies
@@ -27,6 +39,7 @@ hash.
 """
 from __future__ import annotations
 
+import dataclasses
 import heapq
 from typing import List, Tuple
 
@@ -36,7 +49,9 @@ import torch
 from repro_torch.core import hnsw
 from repro_torch.core.commands import (DELETE, INSERT, LINK, NOP, NUM_OPCODES,
                                        SET_META, UNLINK, CommandLog)
-from repro_torch.core.state import MemoryState, WorkingState
+from repro_torch.core.state import (DeviceGraph, MemoryState, WorkingState,
+                                    graph_on_host)
+from repro_torch.kernels.qhnsw import ref as qhnsw_ref
 
 
 def _slot_of_id(ws: WorkingState, ext_id: int) -> int:
@@ -50,23 +65,32 @@ def _slot_of_id(ws: WorkingState, ext_id: int) -> int:
 # --------------------------------------------------------------------------- #
 
 
-def _op_insert(ws: WorkingState, a0: int, vec: torch.Tensor, ef: int) -> None:
+def _insert_target(ws: WorkingState, a0: int) -> Tuple[int, bool]:
+    """(slot, upsert) an INSERT of ``a0`` writes: its live slot, else the
+    lowest free one; slot -1 when a full arena rejects the new id."""
     existing = _slot_of_id(ws, a0)
-    has_existing = existing >= 0
+    if existing >= 0:
+        return existing, True
     free = ~ws.valid
-    if not has_existing and not free.any():
+    return (int(np.argmax(free)) if free.any() else -1), False
+
+
+def _op_insert(ws: WorkingState, a0: int, vec: torch.Tensor, ef: int,
+               target: Tuple[int, bool]) -> None:
+    slot, has_existing = target
+    if slot < 0:
         return  # full arena rejects new ids
-    slot = existing if has_existing else int(np.argmax(free))
     ws.vectors[slot] = vec
     ws.ids[slot] = a0
     ws.valid[slot] = True
+    ws.touch(slot)
     ws.cursor = max(ws.cursor, slot + 1)
     if has_existing:
         return  # overwrites keep their meta, links and graph edges
     ws.count += 1
     ws.meta[slot] = 0
     ws.links[slot] = -1
-    hnsw._insert(ws, slot, ef)
+    hnsw.link(ws, slot, ef, fast=False)
 
 
 def _op_delete(ws: WorkingState, a0: int) -> None:
@@ -74,6 +98,7 @@ def _op_delete(ws: WorkingState, a0: int) -> None:
     if slot >= 0:
         ws.valid[slot] = False
         ws.ids[slot] = -1
+        ws.touch(slot)
         ws.count -= 1
     hnsw._ensure_live_entry_ws(ws)
 
@@ -101,12 +126,20 @@ def _op_set_meta(ws: WorkingState, a0: int, a1: int, a2: int) -> None:
 
 
 def _apply_one(ws: WorkingState, op: int, a0: int, a1: int, a2: int,
-               vec: torch.Tensor, ef: int) -> None:
-    """F without the version bump."""
+               vec: torch.Tensor, ef: int):
+    """Generator: F without the version bump; yields first where the
+    queued inserts must be linked before this command."""
     op = min(max(op, 0), NUM_OPCODES - 1)
     if op == INSERT:
-        _op_insert(ws, a0, vec, ef)
+        target = _insert_target(ws, a0)
+        slot, upsert = target
+        if ws.pending and slot >= 0 and (
+                upsert or ws.in_graph[slot] or hnsw.needs_link(ws, ef, False)):
+            yield
+        _op_insert(ws, a0, vec, ef, target)
     elif op == DELETE:
+        if ws.pending:
+            yield
         _op_delete(ws, a0)
     elif op == LINK:
         _op_link(ws, a0, a1)
@@ -121,13 +154,68 @@ def _host_fields(log: CommandLog):
                                                    "arg2")]
 
 
-def _scan(ws: WorkingState, log: CommandLog, ef: int, bump: bool) -> None:
+def _scan(ws: WorkingState, log: CommandLog, ef: int, bump: bool):
+    """Generator: F command by command (see ``_run``)."""
     opcode, arg0, arg1, arg2 = _host_fields(log)
     for i in range(len(log)):
-        _apply_one(ws, int(opcode[i]), int(arg0[i]), int(arg1[i]),
-                   int(arg2[i]), log.vec[i], ef)
+        yield from _apply_one(ws, int(opcode[i]), int(arg0[i]), int(arg1[i]),
+                              int(arg2[i]), log.vec[i], ef)
         if bump:
             ws.version += 1
+
+
+def working_lanes(stacked: MemoryState) -> List[WorkingState]:
+    """Writable working states of a stacked state's lanes (shards): on the
+    card lanes of one ``DeviceGraph`` (a clone of the stacked arena and
+    graph), so that ``_run`` links all their runs with one launch."""
+    lanes = qhnsw_ref.lanes(stacked)
+    if graph_on_host(stacked.device):
+        return [WorkingState(lane, writable=True) for lane in lanes]
+    graph = DeviceGraph.of(stacked)
+    return [WorkingState(lane, graph=graph, lane=s)
+            for s, lane in enumerate(lanes)]
+
+
+def stacked_state(wss: List[WorkingState], like: MemoryState) -> MemoryState:
+    """``working_lanes``' states written back as one stacked state."""
+    if wss[0].host_graph:
+        return qhnsw_ref.stack_lanes([ws.to_state() for ws in wss])
+    dev, graph = like.device, wss[0].graph
+
+    def host(field):
+        return torch.from_numpy(np.stack([getattr(ws, field) for ws in wss])
+                                ).to(dev)
+
+    def scalar(field, dt):
+        return torch.tensor([getattr(ws, field) for ws in wss], dtype=dt,
+                            device=dev)
+
+    return dataclasses.replace(
+        like, vectors=graph.vectors, ids=host("ids"), valid=host("valid"),
+        links=host("links"), meta=host("meta"),
+        hnsw_neighbors=graph.neighbors, hnsw_levels=graph.levels,
+        hnsw_entry=scalar("entry", torch.int32),
+        cursor=scalar("cursor", torch.int32),
+        count=scalar("count", torch.int32),
+        version=scalar("version", torch.int64))
+
+
+def _run(lanes: List[WorkingState], gens: list) -> None:
+    """Drive one applier generator per working state to its end. Each
+    round advances every live generator to its next yield (or its end),
+    then links every lane's queued inserts with one launch; lanes share
+    one ``DeviceGraph`` (the shards of a stacked state) or are one."""
+    live = list(range(len(gens)))
+    while live:
+        nxt = []
+        for i in live:
+            try:
+                next(gens[i])
+                nxt.append(i)
+            except StopIteration:
+                pass
+        hnsw.link_pending(lanes)
+        live = nxt
 
 
 # --------------------------------------------------------------------------- #
@@ -148,7 +236,7 @@ def replay(state: MemoryState, log: CommandLog, *,
     """Apply a whole log one command at a time: the definitional
     Apply(S_0, {C_i}). A pure function of (state, log)."""
     ws = WorkingState(state, writable=True)
-    _scan(ws, log, ef_construction, bump=True)
+    _run([ws], [_scan(ws, log, ef_construction, bump=True)])
     return ws.to_state()
 
 
@@ -214,14 +302,15 @@ def _apply_insert_segment(ws: WorkingState, log: CommandLog, n_real: int,
             log.vec[torch.from_numpy(np.flatnonzero(accepted)).to(dev)]
         ws.ids[acc] = log.arg0.cpu().numpy()[accepted]
         ws.valid[acc] = True
+        ws.touch(acc)
         ws.meta[acc] = 0
         ws.links[acc] = -1
         ws.count += len(acc)
         ws.cursor = max(ws.cursor, int(acc.max()) + 1)
     ws.version += n_real
     # graph construction in log order over the fresh rows only
-    for slot in acc:
-        hnsw._insert(ws, int(slot), ef, fast=True)
+    for slot in acc.tolist():
+        hnsw.link(ws, slot, ef, fast=True)
 
 
 def _apply_delete_segment(ws: WorkingState, arg0: np.ndarray,
@@ -232,6 +321,7 @@ def _apply_delete_segment(ws: WorkingState, arg0: np.ndarray,
     do = found & first_occ & (np.arange(len(arg0)) < n_real)
     ws.valid[slots[do]] = False
     ws.ids[slots[do]] = -1
+    ws.touch(slots[do])
     ws.count -= int(do.sum())
     ws.version += n_real
     hnsw._ensure_live_entry_ws(ws)
@@ -248,10 +338,11 @@ def _apply_meta_segment(ws: WorkingState, arg0, arg1, arg2, last_occ,
 
 
 def _apply_seq_segment(ws: WorkingState, log: CommandLog, n_real: int,
-                       ef: int) -> None:
-    """Order-sensitive remainder: F command by command; NOP padding must
-    not advance logical time, so the version moves by ``n_real``."""
-    _scan(ws, log, ef, bump=False)
+                       ef: int):
+    """Generator: the order-sensitive remainder, F command by command; NOP
+    padding must not advance logical time, so the version moves by
+    ``n_real``."""
+    yield from _scan(ws, log, ef, bump=False)
     ws.version += n_real
 
 
@@ -269,7 +360,7 @@ class _HostAllocator:
                         for s, i in zip(np.flatnonzero(ws.valid),
                                         ws.ids[ws.valid])}
         self.free = np.flatnonzero(~ws.valid).tolist()  # already sorted
-        self.virgin = ws.levels < 0
+        self.virgin = ~ws.graph_nodes()
 
     def next_slot_virgin(self) -> bool:
         return (not self.free) or bool(self.virgin[self.free[0]])
@@ -357,21 +448,21 @@ def _segment_log(opcode, arg0, alloc: _HostAllocator) -> List[tuple]:
     return merged
 
 
-def bulk_apply(state: MemoryState, log: CommandLog, *,
-               ef_construction: int = 32) -> MemoryState:
-    """Apply a whole log in batched form; hash-identical to ``replay``."""
-    if len(log) == 0:
-        return state
-    ws = WorkingState(state, writable=True)
+def _bulk(ws: WorkingState, log: CommandLog, ef: int):
+    """Generator: the segments of ``bulk_apply`` (see ``_run``)."""
     opcode, arg0, arg1, arg2 = _host_fields(log)
     for kind, a, b, aux in _segment_log(opcode, arg0, _HostAllocator(ws)):
         m = b - a
         if kind == "nop":
             ws.version += m
         elif kind == "insert":
+            if hnsw.needs_link(ws, ef, True):
+                yield
             _apply_insert_segment(ws, _pad_log(log.slice(a, b), _pow2(m)), m,
-                                  ef_construction)
+                                  ef)
         elif kind == "delete":
+            if ws.pending:
+                yield
             _apply_delete_segment(ws, arg0[a:b], aux, m)
         elif kind == "run" and aux == SET_META:
             mslots = np.clip(arg1[a:b], 0, ws.meta.shape[1] - 1)
@@ -383,6 +474,15 @@ def bulk_apply(state: MemoryState, log: CommandLog, *,
                 seen.add(key)
             _apply_meta_segment(ws, arg0[a:b], arg1[a:b], arg2[a:b], occ, m)
         else:  # "seq": LINK/UNLINK runs and hazardous INSERTs
-            _apply_seq_segment(ws, _pad_log(log.slice(a, b), _pow2(m)), m,
-                               ef_construction)
+            yield from _apply_seq_segment(
+                ws, _pad_log(log.slice(a, b), _pow2(m)), m, ef)
+
+
+def bulk_apply(state: MemoryState, log: CommandLog, *,
+               ef_construction: int = 32) -> MemoryState:
+    """Apply a whole log in batched form; hash-identical to ``replay``."""
+    if len(log) == 0:
+        return state
+    ws = WorkingState(state, writable=True)
+    _run([ws], [_bulk(ws, log, ef_construction)])
     return ws.to_state()

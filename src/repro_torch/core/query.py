@@ -3,8 +3,9 @@
 ``plan_query`` and ``QueryPlan`` are the reference's host logic, verbatim,
 so the port's plans compare equal to the reference's. ``execute_plan``
 runs the exact route (``search.exact_search``: qgemm + qtopk on the card),
-the HNSW route (``batched_hnsw_search``) or the compressed tier's coarse
-route (``search.coarse_search``: qcoarse + qtopk + qgemm on the card).
+the HNSW route (``batched_hnsw_search``: qhnsw on the card) or the
+compressed tier's coarse route (``search.coarse_search``: qcoarse + qtopk
++ qgemm on the card).
 ``sharded_query`` fans the planned route out over a sharded-layout state
 on a device list (``distributed``), ending in the one order-invariant
 ``(score, id)`` merge; ``sharded_host_query`` is that fan-out with every
@@ -15,14 +16,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core import codes as codes_lib
 from repro_torch.core import hashing
-from repro_torch.core import hnsw as hnsw_lib
 from repro_torch.core import search
-from repro_torch.core.state import MemoryState, WorkingState
+from repro_torch.core.state import MemoryState
+from repro_torch.kernels import qhnsw
 
 INF = search.INF
 
@@ -35,16 +35,10 @@ def batched_hnsw_search(state: MemoryState, queries_raw: torch.Tensor, k: int,
                         *, ef: int = 64
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ANN for B queries: (ids [B,k], dists [B,k], slots [B,k]) on the
-    state's device, each row exactly ``hnsw.hnsw_search`` of that query."""
-    rows = hnsw_lib.search_batch(WorkingState(state), queries_raw, k, ef)
-    dev = state.device
-    kk = rows[0][0].shape[0] if rows else min(k, ef)
-    out = []
-    for j, dt in enumerate((np.int64, np.int64, np.int32)):
-        arr = (np.stack([r[j] for r in rows]) if rows
-               else np.zeros((0, kk), dt))
-        out.append(torch.from_numpy(arr).to(dev))
-    return tuple(out)
+    state's device, each row exactly ``hnsw.hnsw_search`` of that query:
+    one launch of the qhnsw search kernel on the card (one CTA per query),
+    the plain version's lockstep beams on the CPU."""
+    return qhnsw.qhnsw_search(state, queries_raw, k, ef)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -34,6 +34,7 @@ caller names another).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -42,7 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import distributed, hashing, hnsw, search
+from repro_torch.core import distributed, hashing, hnsw, machine, search
 from repro_torch.core import snapshot, wal
 from repro_torch.core.commands import CommandLog
 from repro_torch.core.durability import _RESTORE_ERRORS, DurableStore
@@ -352,30 +353,143 @@ def live_count(state: MemoryState) -> int:
 
 def bulk_apply_sharded(state: MemoryState, log: CommandLog, n_shards: int,
                        *, ef_construction: int = 32,
-                       routed: Optional[CommandLog] = None) -> MemoryState:
+                       routed: Optional[CommandLog] = None,
+                       device: Optional[bool] = None) -> MemoryState:
     """Route a global batch and apply each shard's share to its slice of a
-    sharded-layout state with ``machine.bulk_apply`` — the in-memory
-    reference for what a ``ShardedDurableStore`` ingest makes durable.
-    ``routed`` skips the re-route. Bit-identical to both of the reference's
-    drivers (its ``device=`` option picks a vmapped scan or per-shard
-    ``bulk_apply``; here both would be the same host loop on the state's
-    device, so there is one)."""
+    sharded-layout state — the in-memory reference for what a
+    ``ShardedDurableStore`` ingest makes durable. ``routed`` skips the
+    re-route.
+
+    ``device`` picks how the shares are applied, as in the reference:
+    ``True`` runs every shard's share as one stacked replay
+    (``apply_routed_device``:
+    on the card one insert launch per run for all shards), ``False`` the
+    per-shard ``machine.bulk_apply`` (whose segmentation planner wins on
+    long shares), ``None`` (default) the first for shares of at most
+    ``_DEVICE_APPLY_MAX`` commands, the second beyond. All three are
+    bit-identical."""
     if routed is None:
         routed = distributed.route_commands(log, n_shards)
+    if device is None:
+        device = int(routed.opcode.shape[1]) <= _DEVICE_APPLY_MAX
+    if device:
+        return apply_routed_device(state, routed, n_shards,
+                                   ef_construction=ef_construction)
     return distributed.distributed_bulk_apply(
         [state.device] * n_shards, state, routed,
         ef_construction=ef_construction)
 
 
+# --------------------------------------------------------------------------- #
+# the stacked routed apply (DESIGN.md §11): no per-shard host loop
+# --------------------------------------------------------------------------- #
+
+# auto-route threshold: shares at or under this many commands take the
+# stacked replay; longer shares amortize bulk_apply's segmentation planner
+_DEVICE_APPLY_MAX = 128
+
+
+def shard_stack(state: MemoryState, n_shards: int) -> MemoryState:
+    """Sharded layout → stacked layout: every array gains a leading
+    [n_shards] axis whose lanes are exactly ``distributed.shard_slice``'s
+    per-shard states (reshapes and a ``movedim``, no copies of row data).
+    The result is what the qhnsw kernels take, not a valid flat
+    MemoryState; ``shard_unstack`` is the inverse."""
+    cap = state.capacity // n_shards
+
+    def rows(a):  # [n_shards*cap, ...] → [n_shards, cap, ...]
+        return a.reshape((n_shards, cap) + tuple(a.shape[1:]))
+
+    nb = state.hnsw_neighbors  # [levels, n_shards*cap, degree]
+    nb = nb.reshape(nb.shape[0], n_shards, cap, nb.shape[2]).movedim(1, 0)
+    return dataclasses.replace(
+        state,
+        vectors=rows(state.vectors), ids=rows(state.ids),
+        valid=rows(state.valid), links=rows(state.links),
+        meta=rows(state.meta), hnsw_neighbors=nb,
+        hnsw_levels=rows(state.hnsw_levels),
+        # hnsw_entry / cursor / count / version are already [n_shards]
+    )
+
+
+def shard_unstack(stacked: MemoryState, n_shards: int) -> MemoryState:
+    """Inverse of ``shard_stack``: back to the shard-major sharded layout."""
+    def rows(a):  # [n_shards, cap, ...] → [n_shards*cap, ...]
+        return a.reshape((-1,) + tuple(a.shape[2:]))
+
+    nb = stacked.hnsw_neighbors.movedim(0, 1)  # [levels, ns, cap, degree]
+    nb = nb.reshape(nb.shape[0], -1, nb.shape[3])
+    return dataclasses.replace(
+        stacked,
+        vectors=rows(stacked.vectors), ids=rows(stacked.ids),
+        valid=rows(stacked.valid), links=rows(stacked.links),
+        meta=rows(stacked.meta), hnsw_neighbors=nb,
+        hnsw_levels=rows(stacked.hnsw_levels),
+    )
+
+
+def _pad_routed(routed: CommandLog, target: int) -> CommandLog:
+    """NOP-pad every shard's share from its routed length to ``target``
+    (pow2 buckets, like ``machine._pad_log``). All-zero records are
+    NOPs."""
+    n = int(routed.opcode.shape[1])
+    if n == target:
+        return routed
+
+    def z(a):
+        pad = torch.zeros((a.shape[0], target - n) + tuple(a.shape[2:]),
+                          dtype=a.dtype, device=a.device)
+        return torch.cat([a, pad], dim=1)
+
+    return CommandLog(opcode=z(routed.opcode), arg0=z(routed.arg0),
+                      arg1=z(routed.arg1), arg2=z(routed.arg2),
+                      vec=z(routed.vec))
+
+
+def _apply_routed_stacked(stacked: MemoryState, routed: CommandLog,
+                          n_real: int, *, ef_construction: int
+                          ) -> MemoryState:
+    """Every shard replays its (padded) share of ``routed`` with F, the
+    shards in lockstep: on the card their working states are lanes of one
+    ``DeviceGraph`` and each round of queued inserts is one launch of the
+    insert kernel for all of them (``machine._run``). ``n_real`` is the
+    routed share length — the pow2 NOP padding must not advance logical
+    time, so ``version`` is pinned to base + n_real afterwards (the routing
+    NOPs *inside* the share do advance it, as on every other path)."""
+    wss = machine.working_lanes(stacked)
+    base = stacked.version.cpu().tolist()
+    machine._run(wss, [machine._scan(ws, distributed.share(routed, s),
+                                     ef_construction, bump=True)
+                       for s, ws in enumerate(wss)])
+    for ws, v in zip(wss, base):
+        ws.version = v + n_real
+    return machine.stacked_state(wss, stacked)
+
+
+def apply_routed_device(state: MemoryState, routed: CommandLog,
+                        n_shards: int, *, ef_construction: int = 32
+                        ) -> MemoryState:
+    """Apply an already-routed batch to a sharded-layout state as one
+    stacked replay: one reshape in, every shard's share replayed in
+    lockstep with one insert launch per run for all shards, one reshape
+    out — no per-shard loop of applies. Bit-identical to the per-shard
+    ``bulk_apply`` path (both equal per-shard ``replay``); on the CPU it
+    runs the plain version."""
+    n_real = int(routed.opcode.shape[1])
+    padded = _pad_routed(routed, machine._pow2(n_real))
+    out = _apply_routed_stacked(shard_stack(state, n_shards), padded, n_real,
+                                ef_construction=ef_construction)
+    return shard_unstack(out, n_shards)
+
+
 def relink_sharded(state: MemoryState, n_shards: int, *,
                    ef_construction: int = 32) -> MemoryState:
     """Re-link every shard's graph from its own live rows: each shard lands
-    on exactly the graph ``hnsw.fresh_build`` of its slice lands on. The
-    arena is untouched; only the graph arrays and entries move."""
-    return distributed.merge_shards(
-        [hnsw.relink(distributed.shard_slice(state, s, n_shards),
-                     ef_construction=ef_construction)
-         for s in range(n_shards)])
+    on exactly the graph ``hnsw.fresh_build`` of its slice lands on (on the
+    card, one insert launch for all shards). The arena is untouched; only
+    the graph arrays and entries move."""
+    return shard_unstack(hnsw.rebuild(shard_stack(state, n_shards),
+                                      ef_construction, True), n_shards)
 
 
 def exact_search_sharded(state: MemoryState, n_shards: int,

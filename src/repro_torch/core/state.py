@@ -167,33 +167,95 @@ def state_to_numpy(state: MemoryState) -> Dict[str, np.ndarray]:
     return {f: t.detach().cpu().numpy() for f, t in state.leaves()}
 
 
+def graph_on_host(device: torch.device) -> bool:
+    """Where a working state keeps the HNSW graph: on the host (the plain
+    version's numpy mirrors) for a CPU state, on the card otherwise."""
+    return torch.device(device).type != "cuda"
+
+
+@dataclasses.dataclass
+class DeviceGraph:
+    """The arena and graph of ``n`` lanes (shards) on the card, stacked, for
+    the qhnsw insert kernel: ``vectors`` [n, cap, dim] (the lanes' working
+    rows), ``ids`` / ``valid`` [n, cap] (the card's copies of the lanes'
+    host mirrors, brought up to date before each launch), ``neighbors``
+    [n, levels, cap, degree], ``levels`` [n, cap] and ``entry`` [n]. Every
+    tensor is the working state's own (a clone of the input's)."""
+    vectors: torch.Tensor
+    ids: torch.Tensor
+    valid: torch.Tensor
+    neighbors: torch.Tensor
+    levels: torch.Tensor
+    entry: torch.Tensor
+
+    @classmethod
+    def of(cls, state: MemoryState) -> "DeviceGraph":
+        """A clone of a stacked state's arena and graph (a flat state is
+        one lane)."""
+        f = [state.vectors, state.ids, state.valid, state.hnsw_neighbors,
+             state.hnsw_levels, state.hnsw_entry]
+        if state.vectors.dim() == 2:
+            f = [t[None] for t in f[:5]] + [f[5].reshape(1)]
+        return cls(*(t.clone() for t in f))
+
+    def tensors(self) -> tuple:
+        return (self.vectors, self.ids, self.valid, self.neighbors,
+                self.levels, self.entry)
+
+
 class WorkingState:
-    """A mutable working copy of a MemoryState, for the host-driven loops of
-    the transition function F and the HNSW construction and search.
+    """A mutable working copy of a MemoryState, for the loops of the
+    transition function F and the HNSW construction and search.
 
-    The arena's vectors stay on the state's device and every distance is
-    computed there. The small integer bookkeeping — ids, the valid mask,
-    links, meta, the HNSW adjacency, levels and entry, and the scalars — is
-    mirrored on the host (numpy / Python ints) for the duration of one call,
-    so that each data-dependent decision costs one device round trip (the
-    distances it needs) instead of one per array read. ``to_state`` writes
-    everything back as tensors on the device. ``vectors`` is a private clone
-    only when the caller will write rows (``writable=True``)."""
+    The arena's vectors stay on the state's device. The small integer
+    bookkeeping — ids, the valid mask, links, meta, the HNSW entry and the
+    scalars — is mirrored on the host (numpy / Python ints) for the
+    duration of one call, so that each data-dependent decision of F costs
+    no device round trip. ``to_state`` writes everything back as tensors
+    on the device. ``vectors`` is a private clone only when the caller will
+    write rows (``writable=True``).
 
-    def __init__(self, state: MemoryState, writable: bool = False):
+    The graph lives where ``host_graph`` says (default: on the host for a
+    CPU state, on the card for a CUDA one). On the host, ``neighbors`` and
+    ``levels`` are numpy mirrors and the plain version's beams
+    (``kernels/qhnsw/ref.py``) work on them. On the card they stay in
+    ``graph`` (a ``DeviceGraph``, of which this working state is lane
+    ``lane``): inserts queue on ``pending`` and ``hnsw.link_pending`` links
+    a run of them with one launch of the insert kernel; the host keeps
+    only ``in_graph`` (which slots hold a graph node, what slot reuse needs)
+    and the entry, and notes in ``dirty`` the slots whose ids / valid the
+    card's copies must take before the next launch."""
+
+    def __init__(self, state: MemoryState, writable: bool = False,
+                 host_graph: bool | None = None,
+                 graph: "DeviceGraph | None" = None, lane: int = 0):
         self.device = state.device
         self.contract_name = state.contract_name
-        self.vectors = state.vectors.clone() if writable else state.vectors
+        self.host_graph = (graph_on_host(self.device) if host_graph is None
+                           else host_graph)
         self.ids = state.ids.cpu().numpy().copy()
         self.valid = state.valid.cpu().numpy().copy()
         self.links = state.links.cpu().numpy().copy()
         self.meta = state.meta.cpu().numpy().copy()
-        self.neighbors = state.hnsw_neighbors.cpu().numpy().copy()
-        self.levels = state.hnsw_levels.cpu().numpy().copy()
         self.entry = int(state.hnsw_entry)
         self.cursor = int(state.cursor)
         self.count = int(state.count)
         self.version = int(state.version)
+        self.pending: list = []  # slots queued for the next insert launch
+        if self.host_graph:
+            self.vectors = state.vectors.clone() if writable else state.vectors
+            self.neighbors = state.hnsw_neighbors.cpu().numpy().copy()
+            self.levels = state.hnsw_levels.cpu().numpy().copy()
+            return
+        self.graph = DeviceGraph.of(state) if graph is None else graph
+        self.lane = lane
+        self.vectors = self.graph.vectors[lane]
+        self._degree = state.hnsw_neighbors.shape[2]
+        self._max_levels = state.hnsw_neighbors.shape[0]
+        self.in_graph = state.hnsw_levels.cpu().numpy() >= 0
+        self.pending_key = None  # (ef_construction, fast) of that run
+        self.run_entry = -1      # the entry as the run's first insert saw it
+        self.dirty: list = []    # slots whose ids / valid changed
 
     @property
     def capacity(self) -> int:
@@ -201,11 +263,20 @@ class WorkingState:
 
     @property
     def max_levels(self) -> int:
-        return self.neighbors.shape[0]
+        return self.neighbors.shape[0] if self.host_graph else self._max_levels
 
     @property
     def degree(self) -> int:
-        return self.neighbors.shape[2]
+        return self.neighbors.shape[2] if self.host_graph else self._degree
+
+    def graph_nodes(self) -> np.ndarray:
+        """Which slots hold a graph node (a stored level >= 0)."""
+        return self.levels >= 0 if self.host_graph else self.in_graph.copy()
+
+    def touch(self, slots) -> None:
+        """Note host changes of these slots' ids / valid for the card."""
+        if not self.host_graph:
+            self.dirty.extend(np.asarray(slots, np.int64).reshape(-1).tolist())
 
     def to_state(self) -> MemoryState:
         dev = self.device
@@ -216,10 +287,17 @@ class WorkingState:
         def s(v, dt):
             return torch.tensor(v, dtype=dt, device=dev)
 
+        if self.host_graph:
+            neighbors, levels = t(self.neighbors), t(self.levels)
+        else:
+            if self.pending:
+                raise RuntimeError("link the pending inserts first")
+            neighbors = self.graph.neighbors[self.lane]
+            levels = self.graph.levels[self.lane]
         return MemoryState(
             vectors=self.vectors, ids=t(self.ids), valid=t(self.valid),
             links=t(self.links), meta=t(self.meta),
-            hnsw_neighbors=t(self.neighbors), hnsw_levels=t(self.levels),
+            hnsw_neighbors=neighbors, hnsw_levels=levels,
             hnsw_entry=s(self.entry, torch.int32),
             cursor=s(self.cursor, torch.int32),
             count=s(self.count, torch.int32),

@@ -27,7 +27,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v"]
-KERNELS = ("qboundary", "qgemm", "qtopk", "qcoarse")
+KERNELS = ("qboundary", "qgemm", "qtopk", "qcoarse", "qhnsw")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 PTXAS_LOG: Dict[str, str] = {}
@@ -39,6 +39,7 @@ _SIGNATURES = {
     "qtopk": [_P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _P, _P, _I64, _I64,
               _I32, _I32, _P],
     "qcoarse": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "qhnsw": [_P, _P],
 }
 
 
