@@ -38,7 +38,11 @@ Phases (any failure raises and exits non-zero):
    the result in both, and qhnsw_search answers 64 queries (k = 10, ef =
    64) on it, flat and over 4 shards of the same rows in one launch, each
    equal to the plain version (the host-driven beams) bit for bit and
-   timed beside it, with a bound from the rows the beams need. The build
+   timed beside it, with a bound from the rows the beams need and a chain
+   bound (the plain version's dependent distance steps times one memory
+   round trip, measured), the cluster size of each op, us per insert and
+   per step; then one insert run and one search at d = 333, which no
+   cluster size divides, equal to the plain versions. The build
    step prints ptxas
    registers and spills per
    kernel and the integer tensor-core (IMMA/IGMMA) and IDP4A instruction
@@ -61,14 +65,16 @@ Phases (any failure raises and exits non-zero):
    (the exact one also with its boundary: the copy to the card and
    ``admit_query``). Then the refreshed
    table equals ``codes.build`` of the state and ``replay_log_fresh() ==
-   state_hash()`` (its routes against the CPU's on a copy of the state
-   are cut to keep the run inside its time, as are phase 6's); one HNSW
-   batch on the card equals the plain version on a CPU copy of the state
-   it read; at the default documents and seed, ``state_hash`` and
-   ``memory_hash`` (and phase 6's reference record) must equal the values
-   the host-driven graph gave (``PINNED``), as must phase 5's crashed
-   engine, phase 6's memory and first HNSW reads and phase 7's wire HNSW
-   read. Each phase that builds or reads the graph fails unless
+   state_hash()`` (its coarse route against the CPU's on a copy of the
+   state is cut to keep the run inside its time, as are phase 6's); one
+   HNSW batch on the card equals the plain version on a CPU copy of the
+   state it read, and one exact-route batch (``plan_query`` /
+   ``execute_plan``) on the card the CPU's on that same copy; at the
+   default documents and seed, ``state_hash`` and ``memory_hash`` (and
+   phase 6's reference record) must equal the values the host-driven
+   graph gave (``PINNED``), as must phase 5's crashed engine, phase 6's
+   memory and first HNSW reads and phase 7's wire HNSW read. Each phase
+   that builds or reads the graph fails unless
    qhnsw_insert / qhnsw_search launched on its path;
 4. golden — the hashes the JAX reference wrote at d = 2304
    (``tests/fixtures/torch_port_golden.json``, code table and coarse
@@ -320,6 +326,7 @@ PINNED = {"state_hash": 0x283af3b3ad85ec3f, "memory_hash": 0x7bb94cd8a645b90f,
           "replay_hnsw": 0x84d8077e1811c69e,
           "durable": (1546, 0x54e14c1a3a5ed183)}
 QHNSW_ROWS = 1536     # phase 2's hold: rows linked before its insert run
+QHNSW_SMALL_DIM = 333  # and its small width, which no cluster size divides
 EXACT_BATCHES = 50
 HNSW_BATCHES = 10
 COARSE_BATCHES = 50
@@ -1102,19 +1109,23 @@ def check_qcoarse(torch, dev, rng):
 class NeededRows:
     """While the plain HNSW version runs: the rows whose distances each
     beam needs (its prefetches left out), per beam (a query, or one insert
-    with all its levels) and over all beams — the work a bound counts."""
+    with all its levels) and over all beams — the work a bound counts —
+    and each beam's dependent distance steps (the greedy walk's start and
+    moves, each level's entry and expansions with fresh rows: one request
+    each, one memory round trip each on the card)."""
 
     def __init__(self, ref):
-        self.ref, self.sets, self.keep = ref, {}, []
+        self.ref, self.sets, self.keep, self.steps = ref, {}, [], {}
 
     def __enter__(self):
         orig = self.orig = self.ref._dists
-        sets, keep = self.sets, self.keep
+        sets, keep, steps = self.sets, self.keep, self.steps
 
         def counting(cache, slots, ok, prefetch=None):
             if id(cache) not in sets:
                 keep.append(cache)  # no reuse of its id while counting
             sets.setdefault(id(cache), set()).update(slots[ok].tolist())
+            steps[id(cache)] = steps.get(id(cache), 0) + 1
             return (yield from orig(cache, slots, ok, prefetch))
 
         self.ref._dists = counting
@@ -1129,6 +1140,12 @@ class NeededRows:
     def union(self) -> int:
         return len(set().union(*self.sets.values())) if self.sets else 0
 
+    def chain(self) -> dict:
+        """Dependent distance steps: in all, and per beam (mean, max)."""
+        n = list(self.steps.values()) or [0]
+        return dict(total=sum(n), mean=sum(n) / len(n), max=max(n),
+                    beams=len(self.steps))
+
 
 def hnsw_bound(need, row_bytes: int, extra_bytes: int):
     """Least time for a beam's work: each needed row read once (plus the
@@ -1139,38 +1156,77 @@ def hnsw_bound(need, row_bytes: int, extra_bytes: int):
                     3.0 * DIM * need.per_beam(), F32_OPS_PER_S)
 
 
+def stored_run(torch, dev, rng, n, run, dim, capacity):
+    """n seeded unit-norm rows inserted and linked into a ``capacity``-row
+    arena of width ``dim``, 1 % of them deleted, then ``run`` more rows
+    stored but not linked, as ``_apply_insert_segment`` leaves them before
+    its inserts. Returns (state, slots [1, run], the rows' raw values, ids,
+    the deleted ids)."""
+    import dataclasses as dc
+    from repro_torch.core import boundary, commands, machine
+    from repro_torch.core.state import init_state
+    raw = boundary.normalize_embedding(torch.from_numpy(
+        rng.normal(size=(n + run, dim)).astype(np.float32)).to(dev))
+    ids = torch.arange(n + run, device=dev)
+    dead = torch.from_numpy(rng.choice(n, n // 100, replace=False)).to(dev)
+    base = machine.bulk_apply(init_state(capacity, dim, device=dev),
+                              commands.insert_batch(ids[:n], raw[:n]))
+    base = machine.bulk_apply(base, commands.delete_batch(dead, dim))
+    slots = torch.nonzero(~base.valid).reshape(-1)[:run]
+    vectors, sids, valid = (base.vectors.clone(), base.ids.clone(),
+                            base.valid.clone())
+    vectors[slots], sids[slots], valid[slots] = raw[n:], ids[n:], True
+    stored = dc.replace(base, vectors=vectors, ids=sids, valid=valid)
+    return stored, slots.to(torch.int32)[None], raw, ids, dead
+
+
+def check_qhnsw_small(torch, dev, rng, acc_i, acc_s) -> dict:
+    """One insert run (both variants) and one search at ``QHNSW_SMALL_DIM``,
+    which no cluster size the launch takes divides (and whose rows are no
+    whole number of 16-byte units: the plain-load path), bit for bit
+    against the plain versions; returns the cluster sizes taken."""
+    from repro_torch.core import boundary
+    from repro_torch.kernels.qhnsw import kernel, ops, ref
+    d = QHNSW_SMALL_DIM
+    stored, slots, _, _, _ = stored_run(torch, dev, rng, 1024, 256, d, 4096)
+    for fast in (True, False):
+        got = ops.qhnsw_insert(stored, slots, slots.shape[1], fast=fast,
+                               ef_construction=EF_CONSTRUCTION)
+        want = ref.insert_ref(stored, slots, slots.shape[1],
+                              EF_CONSTRUCTION, fast)
+        compare(torch, (got.hnsw_neighbors, got.hnsw_levels, got.hnsw_entry),
+                (want.hnsw_neighbors, want.hnsw_levels, want.hnsw_entry),
+                acc_i)
+    cluster = {"insert": kernel.CLUSTER["insert"]}
+    q = boundary.admit_query(torch.from_numpy(rng.normal(
+        size=(QUERIES, d)).astype(np.float32)).to(dev))
+    compare(torch, ops.qhnsw_search(got, q, K, EF),
+            ref.search_ref(want, q, K, EF), acc_s)
+    cluster["search"] = kernel.CLUSTER["search"]
+    return dict(dim=d, cluster=cluster)
+
+
 def check_qhnsw(torch, dev, rng):
     """qhnsw_insert and qhnsw_search bit for bit against their plain
     versions on the card, at phase 3's width over its arena: 1536 rows
     linked, 1 % deleted, then one run of 512 stored rows linked (fast and
     default variants) and a re-link of the result (both variants); 64
     queries (k = 10, ef = 64) on it, flat and over 4 shards of the same
-    rows in one launch. Times: CUDA events for the kernels, the host clock
+    rows in one launch; then one insert run and one search at
+    ``QHNSW_SMALL_DIM``. Times: CUDA events for the kernels, the host clock
     for the plain versions (host-driven beams with their distances on the
-    card)."""
-    import dataclasses as dc
+    card). Beside each bound, the chain bound: the plain version's
+    dependent distance steps (all of a run's, one beam's most for the
+    search) times one memory round trip (``kernel.round_trip_ns``)."""
     from repro_torch.core import (boundary, commands, distributed, hnsw,
-                                  machine, shard_wal)
-    from repro_torch.core.state import init_state
-    from repro_torch.kernels.qhnsw import ops, ref
+                                  shard_wal)
+    from repro_torch.kernels.qhnsw import kernel, ops, ref
     acc_i = dict(max_abs_err=0, mismatches=0)
     acc_s = dict(max_abs_err=0, mismatches=0)
     n, run = QHNSW_ROWS, BATCH
-    raw = boundary.normalize_embedding(torch.from_numpy(
-        rng.normal(size=(n + run, DIM)).astype(np.float32)).to(dev))
-    ids = torch.arange(n + run, device=dev)
-    dead = torch.from_numpy(rng.choice(n, n // 100, replace=False)).to(dev)
-    base = machine.bulk_apply(init_state(CAPACITY, DIM, device=dev),
-                              commands.insert_batch(ids[:n], raw[:n]))
-    base = machine.bulk_apply(base, commands.delete_batch(dead, DIM))
-    # the run's rows stored but not linked, as _apply_insert_segment
-    # leaves them before its inserts
-    slots = torch.nonzero(~base.valid).reshape(-1)[:run]
-    vectors, sids, valid = (base.vectors.clone(), base.ids.clone(),
-                            base.valid.clone())
-    vectors[slots], sids[slots], valid[slots] = raw[n:], ids[n:], True
-    stored = dc.replace(base, vectors=vectors, ids=sids, valid=valid)
-    slots = slots.to(torch.int32)[None]
+    stored, slots, raw, ids, dead = stored_run(torch, dev, rng, n, run, DIM,
+                                               CAPACITY)
+    trip_ns = kernel.round_trip_ns(dev, 1 << 26, 200_000)
 
     def graph(st):
         return st.hnsw_neighbors, st.hnsw_levels, st.hnsw_entry
@@ -1197,7 +1253,8 @@ def check_qhnsw(torch, dev, rng):
         b, by = hnsw_bound(need, DIM * 4, run * DIM * 4)
         ins["fast" if fast else "default"] = dict(
             ms=cuda_ms(torch, launch, 1, warmup=0), plain_ms=plain_ms,
-            bound_ms=b, bound_by=by)
+            bound_ms=b, bound_by=by, chain=need.chain(),
+            cluster=kernel.CLUSTER["insert"])
         if fast:
             linked = got
     blank, order, n_real = hnsw.rebuild_plan(linked)
@@ -1217,6 +1274,7 @@ def check_qhnsw(torch, dev, rng):
     with NeededRows(ref) as need:
         want, plain_ms = plain(lambda: ref.search_ref(linked, q, K, EF))
     compare(torch, ops.qhnsw_search(linked, q, K, EF), want, acc_s)
+    cluster = kernel.CLUSTER["search"]
     ms = cuda_ms(torch, lambda: ops.qhnsw_search(linked, q, K, EF), 10)
     b, by = hnsw_bound(need, DIM * 4, QUERIES * DIM * 4 + QUERIES * K * 20)
     # the same rows over 4 shards, all shards in one launch
@@ -1229,19 +1287,27 @@ def check_qhnsw(torch, dev, rng):
     with NeededRows(ref) as need_sh:
         want, plain_sh = plain(lambda: ref.search_ref(stacked, q, K, EF))
     compare(torch, ops.qhnsw_search(stacked, q, K, EF), want, acc_s)
+    cluster_sh = kernel.CLUSTER["search"]
     ms_sh = cuda_ms(torch, lambda: ops.qhnsw_search(stacked, q, K, EF), 10)
     b_sh, by_sh = hnsw_bound(need_sh, DIM * 4,
                              QUERIES * DIM * 4 + SHARDS * QUERIES * K * 20)
+    small = check_qhnsw_small(torch, dev, rng, acc_i, acc_s)
     live = int(linked.valid.sum())
+    chains = dict(trip_ns=trip_ns, small=small, search=dict(
+        flat=dict(need.chain(), cluster=cluster, rows=need.per_beam()),
+        sharded=dict(need_sh.chain(), cluster=cluster_sh,
+                     rows=need_sh.per_beam())))
     search = dict(acc_s, ms=ms, plain_ms=plain_ms, library_ms=None,
                   bound_ms=b, bound_by=by, ms_sharded=ms_sh,
                   plain_ms_sharded=plain_sh, bound_ms_sharded=b_sh,
-                  bound_by_sharded=by_sh,
+                  bound_by_sharded=by_sh, chains=chains,
                   shape=f"{QUERIES} queries, k={K}, ef={EF}, {live} live of "
                   f"{CAPACITY} rows, d={DIM}; sharded {SHARDS} x "
                   f"{SHARD_ROWS}")
     insert = dict(acc_i, **ins["fast"], library_ms=None,
                   ms_default=ins["default"]["ms"],
+                  default_chain=ins["default"]["chain"],
+                  default_cluster=ins["default"]["cluster"],
                   plain_ms_default=ins["default"]["plain_ms"],
                   relink=relink,
                   shape=f"one run of {run} stored rows into {n - n // 100} "
@@ -1251,6 +1317,33 @@ def check_qhnsw(torch, dev, rng):
 
 
 def report_qhnsw(search, insert) -> None:
+    ch = search["chains"]
+    trip = ch["trip_ns"]
+    log(f"[kernel] qhnsw: one memory round trip {trip:.1f} ns (one thread's "
+        f"dependent loads over 256 MB) ({CARD[0]})")
+    for variant in ("fast", "default"):
+        r = insert if variant == "fast" else dict(
+            ms=insert["ms_default"], chain=insert["default_chain"],
+            cluster=insert["default_cluster"])
+        c = r["chain"]
+        log(f"[kernel] qhnsw_insert {variant}: cluster of {r['cluster']} "
+            f"CTAs; {r['ms'] * 1e3 / BATCH:.1f} us per insert, "
+            f"{r['ms'] * 1e3 / max(c['total'], 1):.2f} us per dependent "
+            f"step; the plain version's steps {c['total']} in all, "
+            f"{c['mean']:.1f} per insert (at most {c['max']}); chain bound "
+            f"{c['total'] * trip / 1e6:.3f} ms ({CARD[0]})")
+    for tag, c in ch["search"].items():
+        ms = search["ms"] if tag == "flat" else search["ms_sharded"]
+        log(f"[kernel] qhnsw_search {tag}: cluster of {c['cluster']} CTAs; "
+            f"the plain version's steps {c['mean']:.1f} per beam (at most "
+            f"{c['max']}, {c['beams']} beams) beside NeededRows' "
+            f"{c['rows']} needed rows; {ms * 1e3 / max(c['max'], 1):.2f} us "
+            f"per step of the longest beam; chain bound "
+            f"{c['max'] * trip / 1e6:.4f} ms ({CARD[0]})")
+    sm = ch["small"]
+    log(f"[kernel] qhnsw at d = {sm['dim']} (no cluster size divides it): "
+        f"insert run (both variants) and search equal the plain versions, "
+        f"clusters {sm['cluster']}")
     log(f"[kernel] qhnsw_search over {SHARDS} shards in one launch: "
         f"{search['ms_sharded']:.4f} ms (plain {search['plain_ms_sharded']:.1f}"
         f" ms, bound {search['bound_ms_sharded']:.4f} ms by "
@@ -1553,18 +1646,32 @@ def run_engine(torch, dev, n_docs: int, seed: int):
 
 def check_hnsw_on_cpu(torch, dev, state, queries) -> None:
     """One HNSW batch on the card (qhnsw_search) and on a CPU copy of the
-    same state (the plain version): equal ids, distances and slots."""
+    same state (the plain version): equal ids, distances and slots; then
+    one exact-route batch (``query.plan_query(route="exact")`` and
+    ``execute_plan``: qboundary's admitted queries, qgemm, qtopk on the
+    card) on the same two: equal ids and scores."""
     from repro_torch.core import boundary, query
     q = boundary.admit_query(torch.from_numpy(queries).to(dev))
     t0 = time.perf_counter()
+    cpu_state = state.to("cpu")
     card = query.batched_hnsw_search(state, q, K, ef=EF)
-    cpu = query.batched_hnsw_search(state.to("cpu"), q.cpu(), K, ef=EF)
+    cpu = query.batched_hnsw_search(cpu_state, q.cpu(), K, ef=EF)
     for a, b in zip(card, cpu):
         if not torch.equal(a.cpu(), b):
             raise AssertionError("the HNSW route on the card != on the CPU")
+    t1 = time.perf_counter()
     log(f"[engine] one HNSW batch on the card equals the plain version on "
         f"a CPU copy of the state: ids, distances and slots "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({t1 - t0:.1f} s)")
+    plan = query.plan_query(int(state.valid.sum()), K, EF, route="exact")
+    card = query.execute_plan(state, q, K, plan)
+    cpu = query.execute_plan(cpu_state, q.cpu(), K, plan)
+    for a, b in zip(card, cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("the exact route on the card != on the CPU")
+    log(f"[engine] one exact-route batch on the card equals the CPU's on "
+        f"the same copy of the state: ids and scores "
+        f"({time.perf_counter() - t1:.1f} s)")
 
 
 def engine_inputs(n_docs: int, seed: int):

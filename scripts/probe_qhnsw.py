@@ -17,8 +17,15 @@ block's shared memory (a 2^21-row arena's bitmaps, a d = 30000 query
 row); then ``machine.replay``,
 ``machine.bulk_apply`` and ``shard_wal.apply_routed_device`` on random
 logs of inserts, upserts, deletes, links and meta, card against CPU, hash
-for hash. Exits non-zero on any mismatch. ``chip_smoke.py`` holds the
-kernels again at phase 3's width (phase 2) and times them.
+for hash. Each case prints the cluster size (CTAs per beam) its launches
+took. Before the cases it measures one memory round trip
+(``kernel.round_trip_ns``: one thread's dependent loads over a random
+cycle of 256 MB, past L2, and of 1 MB, inside it), the link of the chain
+bound in ``PERF.md``. Exits non-zero on any mismatch. ``chip_smoke.py``
+holds the kernels again at phase 3's width (phase 2) and times them; the
+cluster design's edge cases (dimensions no cluster size divides, repeated
+slots, a sentinel lane) are the ``cuda`` tests of
+``tests/test_torch_qhnsw_cluster.py``.
 """
 import sys
 import time
@@ -75,7 +82,7 @@ def stored_state(torch, contract, cap, d, n_linked, n_stored, n_dead, degree,
 
 def flat_cases(torch, dev, rng) -> None:
     from repro_torch.core import contracts, hnsw
-    from repro_torch.kernels.qhnsw import ops, ref
+    from repro_torch.kernels.qhnsw import kernel, ops, ref
     cases = [("Q16.16", contracts.Q16_16, -2**16, 2**16),
              ("Q8.8", contracts.Q8_8, -2**14, 2**14),
              ("Q32.32", contracts.Q32_32, -2**33, 2**33),
@@ -96,7 +103,8 @@ def flat_cases(torch, dev, rng) -> None:
                 same(torch, f"insert {tag} fast={fast}", graph_of(got),
                      graph_of(want))
                 print(f"[probe] insert {tag} fast={fast}: plain "
-                      f"{t1 - t0:.2f} s, kernel {t2 - t1:.3f} s", flush=True)
+                      f"{t1 - t0:.2f} s, kernel {t2 - t1:.3f} s, cluster "
+                      f"{kernel.CLUSTER['insert']}", flush=True)
                 for f2 in (True, False):
                     same(torch, f"rebuild {tag} {fast}/{f2}",
                          graph_of(hnsw.rebuild(got, ef_c, f2)),
@@ -115,7 +123,7 @@ def spill_cases(torch, dev, rng) -> None:
     and expanded bitmaps, 256 KB each, go to the global scratch) and
     d = 30000 (the query row, 240 KB as int64, goes there)."""
     from repro_torch.core import contracts, hnsw
-    from repro_torch.kernels.qhnsw import ops, ref
+    from repro_torch.kernels.qhnsw import kernel, ops, ref
     for cap, d, ef in ((1 << 21, 16, 64), (1024, 30000, 64)):
         st, slots = stored_state(torch, contracts.Q16_16, cap, d, 200, 60,
                                  10, 16, 4, rng, -2**16, 2**16)
@@ -135,7 +143,8 @@ def spill_cases(torch, dev, rng) -> None:
              ops.qhnsw_search(got, q.to(dev), 10, ef),
              ref.search_ref(want, q, 10, ef))
         print(f"[probe] spill case {tag} ef={ef}: "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"{time.perf_counter() - t0:.1f} s, clusters "
+              f"{kernel.CLUSTER}", flush=True)
 
 
 def empty_and_sharded(torch, dev, rng) -> None:
@@ -226,6 +235,11 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("[ptxas]", line.strip(), flush=True)
     dev = torch.device("cuda")
+    from repro_torch.kernels.qhnsw import kernel
+    for name, n in (("device memory, 256 MB", 1 << 26), ("L2, 1 MB", 1 << 18)):
+        ns = kernel.round_trip_ns(dev, n, 200_000)
+        print(f"[probe] one round trip ({name} walked by one thread): "
+              f"{ns:.1f} ns", flush=True)
     rng = np.random.default_rng(0)
     flat_cases(torch, dev, rng)
     spill_cases(torch, dev, rng)
