@@ -665,9 +665,10 @@ def check_qboundary_contracts(torch, dev, rng) -> dict:
     norm), one launch per call, and equal the CPU's ``normalize_embedding``
     bit for bit. Returns {case: "kernel, <path>"} and the wide instance's
     kernel time at the ingest shape beside Q16.16's."""
+    from repro_torch import kernels
     from repro_torch.core import boundary
     from repro_torch.core.contracts import PrecisionContract, Q16_16
-    from repro_torch.kernels.qboundary import kernel, ops
+    from repro_torch.kernels.qboundary import kernel
     routes = {}
     for name, ib, fb in (("Q4.27", 4, 27), ("Q1.30", 1, 30)):
         c = PrecisionContract(name, int_bits=ib, frac_bits=fb)
@@ -677,12 +678,13 @@ def check_qboundary_contracts(torch, dev, rng) -> dict:
             x = qboundary_rows(rng, n, d)
             xt = torch.from_numpy(x).to(dev)
             for unit_norm in (True, False):
-                before = ops.LAUNCHES
+                before = kernels.launch_counts()["qboundary"]
                 got = boundary.normalize_embedding(xt, c, unit_norm)
-                if ops.LAUNCHES - before != 1:
+                launches = kernels.launch_counts()["qboundary"] - before
+                if launches != 1:
                     raise AssertionError(
                         f"normalize_embedding {name} unit_norm={unit_norm}: "
-                        f"{ops.LAUNCHES - before} kernel launches, want 1")
+                        f"{launches} kernel launches, want 1")
                 want = boundary.normalize_embedding(torch.from_numpy(x), c,
                                                     unit_norm)
                 if not torch.equal(got.cpu(), want):

@@ -32,6 +32,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import fixedpoint as fp
 from repro_torch.core import hashing, machine
 from repro_torch.core import snapshot as snap
@@ -144,8 +145,8 @@ def refresh(table: CodeTable, state: MemoryState, touched_slots) -> CodeTable:
     only the touched rows re-encode, and a drift re-encodes everything,
     which is exactly ``build``. The table is not modified in place."""
     offset, scale = code_params(state.vectors, state.valid)
-    if bool(torch.any(offset != table.offset)) \
-            or bool(torch.any(scale != table.scale)):
+    if bool(obs.host_item(torch.any(offset != table.offset))) \
+            or bool(obs.host_item(torch.any(scale != table.scale))):
         return _build_with(state, offset, scale)
     t = torch.as_tensor(touched_slots).to(device=state.device,
                                           dtype=torch.int64).reshape(-1)

@@ -27,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.state import MemoryState, WorkingState
 from repro_torch.kernels.qhnsw import ops as _ops
 from repro_torch.kernels.qhnsw import ref as _ref
@@ -82,6 +83,11 @@ def link_pending(lanes: Sequence[WorkingState]) -> None:
     lanes = [ws for ws in lanes if not ws.host_graph]
     if not any(ws.pending for ws in lanes):
         return
+    with obs.span("hnsw.link"):
+        _link(lanes)
+
+
+def _link(lanes: Sequence[WorkingState]) -> None:
     g = lanes[0].graph
     if len(lanes) != g.vectors.shape[0] or any(
             ws.graph is not g or ws.lane != s for s, ws in enumerate(lanes)):

@@ -46,6 +46,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import hnsw
 from repro_torch.core.commands import (DELETE, INSERT, LINK, NOP, NUM_OPCODES,
                                        SET_META, UNLINK, CommandLog)
@@ -150,8 +151,8 @@ def _apply_one(ws: WorkingState, op: int, a0: int, a1: int, a2: int,
 
 
 def _host_fields(log: CommandLog):
-    return [getattr(log, f).cpu().numpy() for f in ("opcode", "arg0", "arg1",
-                                                   "arg2")]
+    return [obs.host(getattr(log, f)).numpy()
+            for f in ("opcode", "arg0", "arg1", "arg2")]
 
 
 def _scan(ws: WorkingState, log: CommandLog, ef: int, bump: bool):
@@ -300,7 +301,7 @@ def _apply_insert_segment(ws: WorkingState, log: CommandLog, n_real: int,
         dev = ws.device
         ws.vectors[torch.from_numpy(acc).to(dev)] = \
             log.vec[torch.from_numpy(np.flatnonzero(accepted)).to(dev)]
-        ws.ids[acc] = log.arg0.cpu().numpy()[accepted]
+        ws.ids[acc] = obs.host(log.arg0).numpy()[accepted]
         ws.valid[acc] = True
         ws.touch(acc)
         ws.meta[acc] = 0
@@ -483,6 +484,7 @@ def bulk_apply(state: MemoryState, log: CommandLog, *,
     """Apply a whole log in batched form; hash-identical to ``replay``."""
     if len(log) == 0:
         return state
-    ws = WorkingState(state, writable=True)
-    _run([ws], [_bulk(ws, log, ef_construction)])
-    return ws.to_state()
+    with obs.span("machine.bulk_apply"):
+        ws = WorkingState(state, writable=True)
+        _run([ws], [_bulk(ws, log, ef_construction)])
+        return ws.to_state()

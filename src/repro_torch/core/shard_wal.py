@@ -43,6 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import distributed, hashing, hnsw, machine, search
 from repro_torch.core import snapshot, wal
 from repro_torch.core.commands import CommandLog
@@ -348,7 +349,7 @@ class ShardedDurableStore:
 def live_count(state: MemoryState) -> int:
     """Total live rows of a MemoryState in either layout (flat scalar
     ``count`` or sharded ``[n_shards]`` counts)."""
-    return int(state.count.sum())
+    return int(obs.host_item(state.count.sum()))
 
 
 def bulk_apply_sharded(state: MemoryState, log: CommandLog, n_shards: int,

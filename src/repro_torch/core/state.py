@@ -23,6 +23,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.contracts import (DEFAULT_CONTRACT, PrecisionContract,
                                         get_contract)
 
@@ -233,26 +234,26 @@ class WorkingState:
         self.contract_name = state.contract_name
         self.host_graph = (graph_on_host(self.device) if host_graph is None
                            else host_graph)
-        self.ids = state.ids.cpu().numpy().copy()
-        self.valid = state.valid.cpu().numpy().copy()
-        self.links = state.links.cpu().numpy().copy()
-        self.meta = state.meta.cpu().numpy().copy()
-        self.entry = int(state.hnsw_entry)
-        self.cursor = int(state.cursor)
-        self.count = int(state.count)
-        self.version = int(state.version)
+        self.ids = obs.host(state.ids).numpy().copy()
+        self.valid = obs.host(state.valid).numpy().copy()
+        self.links = obs.host(state.links).numpy().copy()
+        self.meta = obs.host(state.meta).numpy().copy()
+        self.entry = int(obs.host_item(state.hnsw_entry))
+        self.cursor = int(obs.host_item(state.cursor))
+        self.count = int(obs.host_item(state.count))
+        self.version = int(obs.host_item(state.version))
         self.pending: list = []  # slots queued for the next insert launch
         if self.host_graph:
             self.vectors = state.vectors.clone() if writable else state.vectors
-            self.neighbors = state.hnsw_neighbors.cpu().numpy().copy()
-            self.levels = state.hnsw_levels.cpu().numpy().copy()
+            self.neighbors = obs.host(state.hnsw_neighbors).numpy().copy()
+            self.levels = obs.host(state.hnsw_levels).numpy().copy()
             return
         self.graph = DeviceGraph.of(state) if graph is None else graph
         self.lane = lane
         self.vectors = self.graph.vectors[lane]
         self._degree = state.hnsw_neighbors.shape[2]
         self._max_levels = state.hnsw_neighbors.shape[0]
-        self.in_graph = state.hnsw_levels.cpu().numpy() >= 0
+        self.in_graph = obs.host(state.hnsw_levels).numpy() >= 0
         self.pending_key = None  # (ef_construction, fast) of that run
         self.run_entry = -1      # the entry as the run's first insert saw it
         self.dirty: list = []    # slots whose ids / valid changed

@@ -16,32 +16,32 @@ and the card's checks compare against).
 
 ``launch_counts`` reads the four TPU kernels' counts, ``graph_launch_counts``
 qhnsw's two (``qhnsw_search``, ``qhnsw_insert``); ``reset_launch_counts``
-zeroes all of them.
+zeroes all of them. The counts are the tracer's ``launch.<kernel>``
+counters (``repro_torch.obs``), raised by each wrapper: a launch of the
+kernel, or for qtopk a call that launched it (one or two launches).
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels.qboundary import ops as _qboundary_ops
-from repro_torch.kernels.qcoarse import ops as _qcoarse_ops
-from repro_torch.kernels.qgemm import ops as _qgemm_ops
-from repro_torch.kernels.qhnsw import ops as _qhnsw_ops
-from repro_torch.kernels.qtopk import ops as _qtopk_ops
+from repro_torch import obs
 
-_OPS = {"qboundary": _qboundary_ops, "qgemm": _qgemm_ops, "qtopk": _qtopk_ops,
-        "qcoarse": _qcoarse_ops}
+_TPU_KERNELS = ("qboundary", "qgemm", "qtopk", "qcoarse")
+_GRAPH_KERNELS = ("qhnsw_search", "qhnsw_insert")
+
+
+def _counts(names) -> Dict[str, int]:
+    totals = obs.counters()
+    return {name: totals.get(f"launch.{name}", 0) for name in names}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.LAUNCHES for name, mod in _OPS.items()}
+    return _counts(_TPU_KERNELS)
 
 
 def graph_launch_counts() -> Dict[str, int]:
-    return dict(_qhnsw_ops.LAUNCHES)
+    return _counts(_GRAPH_KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for mod in _OPS.values():
-        mod.LAUNCHES = 0
-    for name in _qhnsw_ops.LAUNCHES:
-        _qhnsw_ops.LAUNCHES[name] = 0
+    obs.reset("launch.")

@@ -14,11 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.contracts import DEFAULT_CONTRACT, PrecisionContract
 from repro_torch.kernels.qboundary import kernel as _kernel
 from repro_torch.kernels.qboundary import ref
-
-LAUNCHES = 0  # kernel launches since the last reset
 
 
 def uses_kernel(contract: PrecisionContract) -> bool:
@@ -31,7 +30,6 @@ def qboundary(x: torch.Tensor, contract: PrecisionContract = DEFAULT_CONTRACT,
     """float32 [n, d] → raw fixed-point (unit) vectors [n, d].
 
     Bit-identical to ``boundary.normalize_embedding`` on the same input."""
-    global LAUNCHES
     if x.device.type != "cuda" or not uses_kernel(contract):
         return ref.qboundary_ref(x, contract, unit_norm)
     if x.dim() != 2:
@@ -42,5 +40,5 @@ def qboundary(x: torch.Tensor, contract: PrecisionContract = DEFAULT_CONTRACT,
         raise ValueError("qboundary needs a contiguous input")
     out = torch.empty_like(x, dtype=torch.int32)
     _kernel.launch(x, out, contract, unit_norm)
-    LAUNCHES += 1
+    obs.count("launch.qboundary")
     return out

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.qcoarse import kernel as _kernel
 from repro_torch.kernels.qcoarse import ref
 
@@ -15,8 +16,6 @@ from repro_torch.kernels.qcoarse import ref
 # overflow-free up to MAX_DIM: 255 * 127 * 2^13 < 2^31.
 W_BOUND = 1 << 28
 MAX_DIM = 1 << 13
-
-LAUNCHES = 0  # kernel launches since the last reset
 
 
 def _check_dim(weights: torch.Tensor) -> None:
@@ -36,7 +35,6 @@ def qcoarse_planes(weights: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 def qcoarse(weights: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """Exact weighted-dot scores S [nq, nn] int64 of int32 weights [nq, d]
     against int8 codes [nn, d]."""
-    global LAUNCHES
     _check_dim(weights)
     if weights.device.type != "cuda":
         return ref.qcoarse_ref(weights, codes)
@@ -57,5 +55,5 @@ def qcoarse(weights: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     out = torch.empty((nq, codes.shape[0]), dtype=torch.int64,
                       device=weights.device)
     _kernel.launch(weights, codes, limbs, out)
-    LAUNCHES += 1
+    obs.count("launch.qcoarse")
     return out

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.qgemm import kernel as _kernel
 from repro_torch.kernels.qgemm import ref
 
@@ -21,8 +22,6 @@ from repro_torch.kernels.qgemm import ref
 RAW_BOUND = 1 << 16
 MAX_DIM = 1 << 13
 DTYPES = (torch.int16, torch.int32, torch.int64)
-
-LAUNCHES = 0  # kernel launches since the last reset
 
 
 def _check_dim(queries: torch.Tensor) -> None:
@@ -40,7 +39,6 @@ def qgemm_planes(queries: torch.Tensor, database: torch.Tensor) -> torch.Tensor:
 
 def qgemm(queries: torch.Tensor, database: torch.Tensor) -> torch.Tensor:
     """Exact wide int64 dot scores [nq, nn] of raw fixed-point rows."""
-    global LAUNCHES
     _check_dim(queries)
     if queries.device.type != "cuda":
         return ref.qgemm_ref(queries, database)
@@ -58,5 +56,5 @@ def qgemm(queries: torch.Tensor, database: torch.Tensor) -> torch.Tensor:
     out = torch.empty((queries.shape[0], database.shape[0]), dtype=torch.int64,
                       device=queries.device)
     _kernel.launch(queries, database, out)
-    LAUNCHES += 1
+    obs.count("launch.qgemm")
     return out

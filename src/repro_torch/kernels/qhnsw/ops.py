@@ -14,11 +14,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.state import MemoryState
 from repro_torch.kernels.qhnsw import kernel as _kernel
 from repro_torch.kernels.qhnsw import ref
 
-LAUNCHES = {"qhnsw_search": 0, "qhnsw_insert": 0}
 DTYPES = (torch.int16, torch.int32, torch.int64)
 MAX_LANES = 65535  # the search grid's y dimension
 
@@ -90,7 +90,7 @@ def qhnsw_search(state: MemoryState, queries: torch.Tensor, k: int, ef: int
     out_s = torch.empty((ns, b, kk), dtype=torch.int32, device=dev)
     if b:
         _kernel.search(graph, q64, ef, kk, out_ids, out_d, out_s)
-        LAUNCHES["qhnsw_search"] += 1
+        obs.count("launch.qhnsw_search")
     if ref.is_stacked(state):
         return out_ids, out_d, out_s
     return out_ids[0], out_d[0], out_s[0]
@@ -144,7 +144,7 @@ def link_(graph: tuple, slots: torch.Tensor, n_real: int,
                          f"n_real, got {tuple(slots.shape)}, n_real={n_real}")
     if n_real > 0:
         _kernel.insert(graph, slots, n_real, ef_construction, m, fast)
-        LAUNCHES["qhnsw_insert"] += 1
+        obs.count("launch.qhnsw_insert")
 
 
 def qhnsw_insert(state: MemoryState, slots: torch.Tensor, n_real: int, *,

@@ -13,10 +13,9 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.qtopk import kernel as _kernel
 from repro_torch.kernels.qtopk import ref
-
-LAUNCHES = 0  # calls that launched the kernels (one or two launches each)
 
 
 def block_n(n: int) -> int:
@@ -33,7 +32,6 @@ def qtopk(scores: torch.Tensor, keys: torch.Tensor, k: int
     (unique). Returns (scores [nq, w] int64, keys int32), sorted, with
     w = ``ref.qtopk_width(n, k, block_n(n))``: the k smallest pairs where
     k <= n; else all n pairs, then w - n pad columns where w > n."""
-    global LAUNCHES
     if k < 1:
         raise ValueError(f"qtopk needs k >= 1, got {k}")
     if scores.dim() != 2 or keys.dim() != 1 or keys.shape[0] != scores.shape[1]:
@@ -52,7 +50,7 @@ def qtopk(scores: torch.Tensor, keys: torch.Tensor, k: int
         raise ValueError("qtopk needs contiguous inputs")
     s, i, ordered = _kernel.select(scores, keys, k)
     if nq and n:  # an empty input launches nothing
-        LAUNCHES += 1
+        obs.count("launch.qtopk")
     if not ordered:
         s, i = ref.merge(s, i, min(k, n))
     return ref.pad_columns(s, i, keys, k, bn)

@@ -81,6 +81,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import (boundary, codes, commands, distributed,
                               hashing, hnsw, machine, query, search,
                               shard_wal, snapshot)
@@ -285,7 +286,7 @@ class MemoryAugmentedEngine:
         """The applied-command cursor: flat ``version``, or the common
         per-shard padded cursor (equal at the batch boundaries the engine
         operates at)."""
-        return int(self.memory.version.reshape(-1)[0])
+        return int(obs.host_item(self.memory.version.reshape(-1)[0]))
 
     def live_count(self) -> int:
         return shard_wal.live_count(self.memory)
@@ -376,7 +377,7 @@ class MemoryAugmentedEngine:
         n = min(sizes) if sizes else 0
         if n == 0:
             return None
-        return hashing.digest_bytes(q_raw.cpu().numpy().tobytes()) % n
+        return hashing.digest_bytes(obs.host(q_raw).numpy().tobytes()) % n
 
     def sync_replicas(self, *, max_commands: int = 0) -> int:
         """Catch every replica up to the flush cursor, each slice verified
@@ -433,7 +434,12 @@ class MemoryAugmentedEngine:
         embeddings [N, d]."""
         if len(documents) == 0:
             return []
-        emb = self._embed(documents)
+        with obs.span("engine.insert_documents", len(documents)):
+            return self._insert_documents(documents)
+
+    def _insert_documents(self, documents) -> List[int]:
+        with obs.span("lm.embed"):
+            emb = self._embed(documents)
         n = emb.shape[0]
         raw = boundary.normalize_embedding(emb, self.sc.contract)
         ids = torch.arange(self._next_id, self._next_id + n, dtype=torch.int64,
@@ -456,7 +462,7 @@ class MemoryAugmentedEngine:
         self._cmds_since_relink_check += n
         self._maybe_relink()
         self._maybe_checkpoint()
-        return ids.cpu().tolist()
+        return obs.host(ids).tolist()
 
     def delete_documents(self, doc_ids) -> int:
         """Delete by id with one canonical DELETE batch; unknown ids are
@@ -590,17 +596,23 @@ class MemoryAugmentedEngine:
         """Prompts [B, L] int32 (the LM engine) or float32 queries [B, d]
         (the embedding engine) → (ids [B, k], scores [B, k]), on the route
         the planner picks from static facts (``last_plan``)."""
-        k = k or self.sc.retrieve_k
+        with obs.span("engine.retrieve", len(queries)):
+            return self._retrieve(queries, k or self.sc.retrieve_k)
+
+    def _retrieve(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         # sync-on-read barrier: nothing un-durable is observable, and the
         # cursor it returns is the read-your-writes floor for replica reads
         flush_t = self.flush()
-        emb = self._embed(queries)
-        q_raw = boundary.admit_query(emb, self.sc.contract)
-        plan = query.plan_query(
-            self.live_count(), k, self.sc.ef, use_kernel=self.sc.use_kernel,
-            exact_threshold=self.sc.exact_threshold, route=self.sc.route,
-            ef_coarse=self.sc.ef_coarse, dim=self.d_model,
-            graph_gen=self.graph_gen)
+        with obs.span("boundary.admit"):
+            emb = self._embed(queries)
+            q_raw = boundary.admit_query(emb, self.sc.contract)
+        with obs.span("query.plan"):
+            plan = query.plan_query(
+                self.live_count(), k, self.sc.ef,
+                use_kernel=self.sc.use_kernel,
+                exact_threshold=self.sc.exact_threshold, route=self.sc.route,
+                ef_coarse=self.sc.ef_coarse, dim=self.d_model,
+                graph_gen=self.graph_gen)
         pool_states = None
         if self.read_replicas:
             slot = self._pick_replica(q_raw)
@@ -626,13 +638,15 @@ class MemoryAugmentedEngine:
             if plan.route == query.ROUTE_COARSE:
                 self._ensure_code_tables()
             if not self._layout_sharded:
-                ids, scores = query.execute_plan(self.memory, q_raw, k, plan,
-                                                 codes=self._code_table)
+                with obs.span("query.execute"):
+                    ids, scores = query.execute_plan(
+                        self.memory, q_raw, k, plan, codes=self._code_table)
             else:
                 ids, scores = query.sharded_host_query(
                     self.memory, self.n_shards, q_raw, k, plan,
                     tables=self._code_tables)
-        return ids.cpu().numpy(), scores.cpu().numpy()
+        with obs.span("engine.copy_out"):
+            return obs.host(ids).numpy(), obs.host(scores).numpy()
 
     def _replica_query(self, replicas: list, pool_states: List[MemoryState],
                        q_raw: torch.Tensor, k: int, plan: query.QueryPlan

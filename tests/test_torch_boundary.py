@@ -11,6 +11,7 @@ from repro.core import boundary as jb  # noqa: E402
 from repro.core import contracts as jcontracts  # noqa: E402
 from repro.core import fixedpoint as jfp  # noqa: E402
 from repro.kernels.qboundary import ops as jqb  # noqa: E402
+from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.core import boundary as tb  # noqa: E402
 from repro_torch.core import contracts as tcontracts  # noqa: E402
 from repro_torch.core import fixedpoint as tfp  # noqa: E402
@@ -86,9 +87,9 @@ def test_isqrt_and_division_match():
 
 def test_wrapper_takes_plain_version_on_cpu():
     x = torch.from_numpy(_inputs(8, 16))
-    tqb.LAUNCHES = 0
+    tkernels.reset_launch_counts()
     got = tqb.qboundary(x, tcontracts.Q16_16)
-    assert tqb.LAUNCHES == 0
+    assert tkernels.launch_counts()["qboundary"] == 0
     assert torch.equal(got, tqb_ref.qboundary_ref(x, tcontracts.Q16_16))
 
 

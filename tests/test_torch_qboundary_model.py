@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 from hypothesis import given, settings  # noqa: E402
 from hypothesis import strategies as st  # noqa: E402
 
+from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.core import boundary as tb  # noqa: E402
 from repro_torch.core import contracts as tcontracts  # noqa: E402
 from repro_torch.core import fixedpoint as tfp  # noqa: E402
@@ -188,12 +189,12 @@ def test_launch_constants_are_built_once_and_bounded():
 
 
 def test_wrapper_on_cpu_takes_the_plain_version_at_odd_widths():
-    ops.LAUNCHES = 0
+    tkernels.reset_launch_counts()
     for d in (1, 77, 2305):
         x = torch.from_numpy(_rows(6, d, seed=d + 1))
         assert torch.equal(ops.qboundary(x, tcontracts.Q16_16),
                            ref.qboundary_model(x, tcontracts.Q16_16))
-    assert ops.LAUNCHES == 0
+    assert tkernels.launch_counts()["qboundary"] == 0
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.core import boundary as tb  # noqa: E402
 from repro_torch.core import contracts as tcontracts  # noqa: E402
 from repro_torch.kernels.qboundary import kernel as tqb_kernel  # noqa: E402
@@ -134,8 +135,8 @@ def test_normalize_embedding_beyond_division_bound_on_card(name, ib, fb):
         xt = torch.from_numpy(x).to(dev)
         assert tqb_kernel.path(xt).startswith(path), tqb_kernel.path(xt)
         for unit_norm in (True, False):
-            before = tqb.LAUNCHES
+            before = tkernels.launch_counts()["qboundary"]
             got = tb.normalize_embedding(xt, tc, unit_norm)
-            assert tqb.LAUNCHES - before == 1
+            assert tkernels.launch_counts()["qboundary"] - before == 1
             want = tb.normalize_embedding(torch.from_numpy(x), tc, unit_norm)
             assert np.array_equal(np_(got), np_(want)), (d, unit_norm)
